@@ -1,0 +1,91 @@
+"""Causal integer pre-filters (delta encoding and generic FIR) and their
+inverses, as plain torch ops along the last axis.
+
+Semantics match the reference filter byte for byte:
+
+* encode, delta (filter ``[1,-1]``): first sample verbatim (or its
+  difference from ``prev0``), then successive differences, all in wrapping
+  16-bit arithmetic.
+* encode, generic: causal FIR ``out[i] = sum_j x[i-j] * filt[j]`` with
+  implicit zero padding for ``i-j < 0``. The reference accumulates into a C
+  ``short``; addition and multiplication mod 2**16 form a ring
+  homomorphism, so summing in int64 and wrapping once is bit-identical.
+* decode, delta: running prefix sum with int16 wraparound.
+* decode, generic: the recursive IIR inverse
+  ``out[i] = (in[i] - sum_{j>=1} out[i-j]*filt[j]) / filt[0]``, the
+  division being C's (truncation toward zero) applied to the *wrapped*
+  int16 numerator — exact reconstruction requires |filt[0]| == 1.
+
+These run as torch ops on the tensor's own device; the codec's fast path
+(delta) fuses them into the CUDA kernels instead.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import DELTA_FILTER
+from .rice import wrap16
+
+
+def c16(c: int) -> int:
+    """Filter coefficient reduced mod 2**16 into the int16 range."""
+    return ((int(c) & 0xFFFF) ^ 0x8000) - 0x8000
+
+
+def _shift_right(x: torch.Tensor, j: int) -> torch.Tensor:
+    """x delayed by j samples along the last axis, zero-filled."""
+    if j == 0:
+        return x
+    out = torch.zeros_like(x)
+    if j < x.shape[-1]:
+        out[..., j:] = x[..., :-j]
+    return out
+
+
+def prefilter_encode(x: torch.Tensor, filt: tuple[int, ...] = DELTA_FILTER,
+                     prev0: torch.Tensor | None = None) -> torch.Tensor:
+    """Apply the causal pre-filter along the last axis; returns int16.
+
+    prev0: optional per-row sample preceding ``x[..., 0]``. Delta filter
+    only — it is the recurrence's entire cross-block state.
+    """
+    xi = x.to(torch.int64)
+    if tuple(filt) == DELTA_FILTER:
+        prev = _shift_right(xi, 1)
+        if prev0 is not None:
+            prev[..., 0] = prev0.to(xi.device, torch.int64)
+        return wrap16(xi - prev).to(torch.int16)
+    if prev0 is not None:
+        raise ValueError("prev0 is only supported for the delta filter")
+    acc = xi * c16(filt[0])
+    for j, c in enumerate(filt[1:], start=1):
+        acc = acc + _shift_right(xi, j) * c16(c)
+    return wrap16(acc).to(torch.int16)
+
+
+def prefilter_decode(d: torch.Tensor,
+                     filt: tuple[int, ...] = DELTA_FILTER) -> torch.Tensor:
+    """Invert the causal pre-filter along the last axis; returns int16."""
+    di = d.to(torch.int64)
+    if tuple(filt) == DELTA_FILTER:
+        return wrap16(torch.cumsum(di, dim=-1)).to(torch.int16)
+    return _iir_decode(di, filt)
+
+
+def _iir_decode(d: torch.Tensor, filt: tuple[int, ...]) -> torch.Tensor:
+    """Sequential IIR inverse for generic filters: one step per sample,
+    vectorised over the leading axes. filt[0] == 1 or -1 gives exact
+    reconstruction; other leading coefficients replicate the reference's
+    truncating division (lossy in general)."""
+    f0 = c16(filt[0])
+    taps = [c16(c) for c in filt[1:]]
+    out = torch.empty_like(d)
+    for i in range(d.shape[-1]):
+        num = d[..., i]
+        for j, c in enumerate(taps[:i], start=1):
+            num = wrap16(num - wrap16(out[..., i - j] * c))
+        if f0 != 1:
+            num = torch.div(num, f0, rounding_mode="trunc")
+        out[..., i] = wrap16(num)
+    return out.to(torch.int16)
