@@ -6,25 +6,41 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
 ``deltarice_tpu/native/src``, then, in order:
 
 1. prints the card's name and power limit (nvidia-smi) and the build time;
-2. holds each kernel against its plain torch version (run on a CPU copy of
-   the same inputs) at the main path's shapes — 2048 Nab segments of 7000
+2. holds B1-B4 against their plain torch versions (run on a CPU copy of
+   the same inputs) at the Nab path's shapes — 2048 Nab segments of 7000
    samples, M=8 — exact equality, and times kernel and plain version on
    the card with CUDA events;
 3. round-trips the 8 committed golden vectors with ``device="cuda"``;
-4. drives the main path: ``compress_batch`` / ``decompress_batch`` of 64
+4. drives the Nab path: ``compress_batch`` / ``decompress_batch`` of 64
    Nab chunks of (32, 7000) int16; every stream must equal the native C
    codec's byte for byte, every chunk must decode exactly, and the pack,
    unpack and transpose kernels must each have launched;
-5. prints a JSON line of the kernels, then the JSON ``ok`` line last.
+5. drives the long-segment path on nEDM (1024 x 81920, M=16, as 32 chunks
+   of (32, 81920)) and NOPTREX (256 x 500000, M=8, as 8 chunks of
+   (32, 500000)): the sub-block split encode with its device merge (B3 for
+   nEDM, B5 for NOPTREX), the exact decode (B2) with the split switch off
+   and the speculative split decode (B9 + B6) with it on; every stream must
+   equal native ``dr_compress``, every chunk must decode exactly both ways
+   and through native ``dr_decompress``, and each kernel of the path must
+   have launched;
+6. holds B5, B6 and B9 against their plain versions on the inputs the
+   long-segment path gave them (B9's plain loop on its first 64 segments),
+   and B7 (nEDM) and B8 (NOPTREX) on the tiled staging the JAX decode
+   kernel emits for the same decode buckets, which must concentrate back
+   into the decoded samples (the port's own decode makes no staging, so its
+   path launches neither);
+7. prints a JSON line of the kernels, then the JSON ``ok`` line last.
 
-Any failed phase exits nonzero before the ``ok`` line. Without a CUDA card,
-or outside a checkout of the repository, it exits nonzero at once. Imports
-no JAX.
+Each phase prints its seconds. Any failed phase exits nonzero before the
+``ok`` line. Without a CUDA card, or outside a checkout of the repository,
+it exits nonzero at once. Imports no JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -36,6 +52,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "golden"
 ROWS, LENGTH, CHUNK_ROWS = 2048, 7000, 32
+LONG = {"nedm": 1024, "noptrex": 256}  # waveforms of each long profile
+B9_PLAIN_SEGMENTS = 64  # segments B9's plain loop decodes on the card
+SPLIT_ENV = "DELTARICE_TPU_SPLIT_DECODE"
+# B7 and B8 compact TPU decode staging, which the port's decode never makes
+STAGING_KERNELS = ("concentrate_tiled", "concentrate_tiled_vd")
 REF_C_GBPS = 2.0 / (1.0 / 2.387 + 1.0 / 1.782)  # reference C write/read, hmean
 
 
@@ -261,6 +282,251 @@ def phase_main_path(x_np) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def captured(targets):
+    """Record the arguments of every call to each ``(module, name)`` made
+    inside the block, and pass the call through."""
+    calls = {name: [] for _, name in targets}
+    saved = []
+    for mod, name in targets:
+        orig = getattr(mod, name)
+
+        def spy(*args, _orig=orig, _name=name):
+            calls[_name].append(args)
+            return _orig(*args)
+
+        saved.append((mod, name, orig))
+        setattr(mod, name, spy)
+    try:
+        yield calls
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+
+
+def split_switch(on: bool) -> None:
+    os.environ[SPLIT_ENV] = "1" if on else "0"
+
+
+def phase_long(name: str, x_np) -> tuple[dict, dict]:
+    """The long-segment path on one profile: returns (launches of each
+    counted window, the kernels' inputs captured in a warm-up run)."""
+    import deltarice_tpu_torch as dt
+    from deltarice_tpu_torch import codec, native
+    from deltarice_tpu_torch.models import get_profile
+    from deltarice_tpu_torch.ops import _kernels
+    from deltarice_tpu_torch.ops import concentrate as conc_router
+    from deltarice_tpu_torch.ops import split_decode as sd
+
+    t0 = time.perf_counter()
+    cfg = get_profile(name).config
+    length = cfg.waveform_length
+    chunks = list(x_np.reshape(-1, CHUNK_ROWS, length))
+    parts_enc = codec._split_parts(CHUNK_ROWS, length, cfg)
+    # warm-up, capturing what the path hands each kernel
+    with captured([(conc_router, "concentrate_packed"),
+                   (conc_router, "concentrate_wide"),
+                   (sd, "concentrate_wide16"),
+                   (sd, "split_decode"),
+                   (codec, "unpack_decode"),
+                   (codec, "unpack_decode_split")]) as calls:
+        streams = dt.compress_batch(chunks, cfg, device="cuda")
+        dt.decompress_batch(streams, cfg, device="cuda")
+        split_switch(True)
+        dt.decompress_batch(streams, cfg, device="cuda")
+        split_switch(False)
+        torch.cuda.synchronize()
+    parts_dec = sorted({c[2] for c in calls["split_decode"]})
+    # counted windows: encode + decode with the switch off, then on
+    windows = {}
+    _kernels.reset_launches()
+    streams = dt.compress_batch(chunks, cfg, device="cuda")
+    back_off = dt.decompress_batch(streams, cfg, device="cuda")
+    torch.cuda.synchronize()
+    windows["encode+decode(off)"] = dict(_kernels.launches)
+    split_switch(True)
+    _kernels.reset_launches()
+    handle = codec.decompress_batch_dispatch(streams, cfg, "cuda")
+    flagged = sum(int(bad.sum()) for _i, _d, bad, _w in handle[3]
+                  if bad is not None)
+    back_on = codec.decompress_batch_collect(handle)
+    torch.cuda.synchronize()
+    windows["decode(on)"] = dict(_kernels.launches)
+    split_switch(False)
+    cd = cfg.to_cd_values()
+    for i, (c, s, b0, b1) in enumerate(zip(chunks, streams, back_off,
+                                           back_on)):
+        check(s == native.native_compress(c, cd),
+              f"{name} chunk {i}: stream differs from native dr_compress")
+        check(np.array_equal(b0, c.ravel()),
+              f"{name} chunk {i}: decode (split off) differs")
+        check(np.array_equal(b1, c.ravel()),
+              f"{name} chunk {i}: decode (split on) differs")
+        check(np.array_equal(native.native_decompress(s, cd), c.ravel()),
+              f"{name} chunk {i}: native dr_decompress disagrees")
+    merge = "concentrate_packed" if name == "nedm" else "concentrate_wide"
+    need = {"encode+decode(off)": ("pack_encode", "transpose2d", merge,
+                                   "unpack_decode"),
+            "decode(on)": ("split_decode", "concentrate_wide16")}
+    for window, names in need.items():
+        for kernel in names:
+            check(windows[window].get(kernel, 0) > 0,
+                  f"{name} {window} never launched {kernel}")
+    print(f"[5 long {name}] {len(chunks)} chunks of ({CHUNK_ROWS}, {length})"
+          f" M={cfg.m}: encode split P={parts_enc}, split decode P="
+          f"{parts_dec}; every stream equals native dr_compress, every chunk"
+          f" decodes exactly with the split switch off and on; {flagged} "
+          f"flagged rows re-decoded; launches "
+          f"{json.dumps(windows, sort_keys=True)}")
+    raw = x_np.nbytes
+    comp = sum(len(s) for s in streams)
+    enc_ms = cuda_ms(lambda: dt.compress_batch(chunks, cfg, device="cuda"), 3)
+    dec_off = cuda_ms(lambda: dt.decompress_batch(streams, cfg,
+                                                  device="cuda"), 3)
+    split_switch(True)
+    dec_on = cuda_ms(lambda: dt.decompress_batch(streams, cfg,
+                                                 device="cuda"), 3)
+    split_switch(False)
+    print(f"[5 long {name}] {raw} raw bytes, ratio {comp / raw:.6f}; encode "
+          f"{enc_ms:.3f} ms = {raw / enc_ms / 1e6:.4f} GB/s; decode split "
+          f"off {dec_off:.3f} ms = {raw / dec_off / 1e6:.4f} GB/s, on "
+          f"{dec_on:.3f} ms = {raw / dec_on / 1e6:.4f} GB/s; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return windows, calls
+
+
+def phase_long_kernels(calls_by_path: dict) -> list[dict]:
+    """B5, B6 and B9 against their plain versions on the inputs the
+    long-segment path gave them (B3 too, at the nEDM merge's shape). B9's
+    shape is (sub-rows, words per sub-row)."""
+    from deltarice_tpu_torch.ops.concentrate_cuda import (
+        concentrate_packed, concentrate_packed_plain, concentrate_wide,
+        concentrate_wide_plain, concentrate_wide16, concentrate_wide16_plain)
+    from deltarice_tpu_torch.ops.concentrate_tiled_cuda import (
+        concentrate_tiled, concentrate_tiled_plain, concentrate_tiled_vd,
+        concentrate_tiled_vd_plain, decode_staging, staging_route, untile)
+    from deltarice_tpu_torch.ops.split_decode import unpack_decode_split
+    from deltarice_tpu_torch.ops.split_decode_cuda import (
+        split_decode, split_decode_plain)
+    from deltarice_tpu_torch.ops.transpose_cuda import transpose2d
+    from deltarice_tpu_torch.ops.unpack_cuda import unpack_decode
+
+    rows = {}
+
+    def compare(kernel, err, ms, plain_ms, shape, plain_shape, path):
+        print(f"[6 long kernels] {kernel} {path} {shape}: max_abs_err {err},"
+              f" kernel {ms:.4f} ms, plain torch on the card {plain_ms:.4f}"
+              f" ms (plain on {plain_shape})")
+        check(err == 0, f"{kernel} ({path}) disagrees with its plain version")
+        row = rows.get(kernel)
+        err_all = err if row is None else max(err, row["max_abs_err"])
+        if path == "noptrex" or row is None:
+            rows[kernel] = {"max_abs_err": err_all, "ms": ms,
+                            "plain_ms": plain_ms, "shape": shape,
+                            "plain_shape": plain_shape, "path": path}
+        else:
+            row["max_abs_err"] = err_all
+
+    for path, calls in calls_by_path.items():
+        # the decode layer, switch off against on, on one bucket's streams
+        b2 = calls["unpack_decode"][0]
+        split = calls["unpack_decode_split"][0]
+        _out, bad = unpack_decode_split(*split)
+        b2_ms = cuda_ms(lambda: transpose2d(unpack_decode(*b2)), 5)
+        split_ms = cuda_ms(lambda: unpack_decode_split(*split), 5)
+        print(f"[6 long kernels] decode layer {path}, {b2[0].shape[1]} "
+              f"segments of {b2[0].shape[0]} words: B2 + transpose "
+              f"{b2_ms:.4f} ms; split P={split[5]} (B9 + merge + B6) "
+              f"{split_ms:.4f} ms, {int(bad.sum())} segments flagged for "
+              f"B2 re-decode")
+        # B7 / B8 on the staging the JAX decode kernel emits for the bucket
+        words_t, n_samples, k = b2[:3]
+        nseg = words_t.shape[1]
+        samples = transpose2d(unpack_decode(*b2))
+        route = staging_route(nseg, words_t.shape[0], k)
+        check(route is not None, f"{path}: the JAX decode makes no staging")
+        mode, j, wc, sb = route
+        planes = decode_staging(samples, k, words_t.shape[0], j, wc, sb, mode)
+        if mode == "vd":
+            kernel = "concentrate_tiled_vd"
+            run = lambda: concentrate_tiled_vd(*planes, n_samples, sb)
+            run_plain = lambda: concentrate_tiled_vd_plain(*planes,
+                                                           n_samples, sb)
+        else:
+            kernel, bias = "concentrate_tiled", mode == "bias"
+            run = lambda: concentrate_tiled(planes, n_samples, sb, bias=bias)
+            run_plain = lambda: concentrate_tiled_plain(planes, n_samples, sb,
+                                                        bias=bias)
+        got = run()
+        err = max_err(got, run_plain())
+        check(torch.equal(untile(got, nseg, sb)[:, :n_samples], samples),
+              f"{kernel} ({path}) does not give back the decoded samples")
+        print(f"[6 long kernels] {kernel} {path}: JAX decode staging "
+              f"({mode}, {j} slots per word, {wc}-word chunks, sb={sb}) of "
+              f"{nseg} segments, {planes[0].shape[1] // sb} slots each")
+        compare(kernel, err, cuda_ms(run, 20), cuda_ms(run_plain, 3),
+                list(planes[0].shape), list(planes[0].shape), path)
+        del planes, got, samples
+        for args in calls["concentrate_packed"][:1]:
+            got = concentrate_packed(*args)
+            err = max_err(got, concentrate_packed_plain(*args))
+            compare("concentrate_packed", err,
+                    cuda_ms(lambda: concentrate_packed(*args), 20),
+                    cuda_ms(lambda: concentrate_packed_plain(*args), 3),
+                    list(args[0][0].shape), list(args[0][0].shape), path)
+        for args in calls["concentrate_wide"][:1]:
+            got = concentrate_wide(*args)
+            err = max_err(got, concentrate_wide_plain(*args))
+            compare("concentrate_wide", err,
+                    cuda_ms(lambda: concentrate_wide(*args), 20),
+                    cuda_ms(lambda: concentrate_wide_plain(*args), 3),
+                    list(args[0].shape), list(args[0].shape), path)
+        for args in calls["concentrate_wide16"][:1]:
+            got = concentrate_wide16(*args)
+            err = max_err(got, concentrate_wide16_plain(*args))
+            compare("concentrate_wide16", err,
+                    cuda_ms(lambda: concentrate_wide16(*args), 20),
+                    cuda_ms(lambda: concentrate_wide16_plain(*args), 3),
+                    list(args[0].shape), list(args[0].shape), path)
+        for args in calls["split_decode"][:1]:
+            words_t, wv, parts = args[:3]
+            nseg = min(B9_PLAIN_SEGMENTS, words_t.shape[1])
+            sub = (words_t[:, :nseg].contiguous(),
+                   wv[: nseg * parts].contiguous(), *args[2:])
+            local, meta = split_decode(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = split_decode_plain(*sub)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = max(max_err(local[: nseg * parts], want[0]),
+                      max_err(meta[:, : nseg * parts], want[1]))
+            compare("split_decode", err,
+                    cuda_ms(lambda: split_decode(*args), 20), plain_ms,
+                    [int(words_t.shape[1]) * parts, args[3]],
+                    [nseg * parts, args[3]], path)
+    src = {"concentrate_packed": ("deltarice_tpu_torch/csrc/concentrate.cu",
+                                  "deltarice_tpu/ops/concentrate_pallas.py:69"),
+           "concentrate_wide": ("deltarice_tpu_torch/csrc/concentrate_wide.cu",
+                                "deltarice_tpu/ops/concentrate_pallas.py:781"),
+           "concentrate_wide16": (
+               "deltarice_tpu_torch/csrc/concentrate_wide.cu",
+               "deltarice_tpu/ops/concentrate_pallas.py:856"),
+           "split_decode": ("deltarice_tpu_torch/csrc/split_decode.cu",
+                            "deltarice_tpu/ops/split_decode.py:82"),
+           "concentrate_tiled": (
+               "deltarice_tpu_torch/csrc/concentrate_tiled.cu",
+               "deltarice_tpu/ops/concentrate_pallas.py:238"),
+           "concentrate_tiled_vd": (
+               "deltarice_tpu_torch/csrc/concentrate_tiled.cu",
+               "deltarice_tpu/ops/concentrate_pallas.py:511")}
+    for kernel in ("concentrate_wide", "concentrate_wide16", "split_decode",
+                   "concentrate_tiled", "concentrate_tiled_vd"):
+        check(kernel in rows, f"the long-segment path never called {kernel}")
+    return [{"name": k, "route": "cuda", "source": src[k][0],
+             "replaces": src[k][1], **v} for k, v in rows.items()]
+
+
 def run() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this run needs one", file=sys.stderr)
@@ -272,21 +538,46 @@ def run() -> int:
     sys.path.insert(0, str(ROOT))
     from deltarice_tpu_torch.models import get_profile
 
+    split_switch(False)
+    t_all = time.perf_counter()
     try:
+        t = time.perf_counter()
         phase_device()
         x_np = get_profile("nab").synthetic(ROWS, seed=0)
         kernels = phase_kernels(x_np)
         phase_golden()
-        launches = phase_main_path(x_np)
+        counted = {"nab": {"encode+decode": phase_main_path(x_np)}}
+        print(f"[1-4] {time.perf_counter() - t:.1f} s")
+        calls = {}
+        for name, n in LONG.items():
+            t = time.perf_counter()
+            x_long = get_profile(name).synthetic(n, seed=0)
+            print(f"[5 long {name}] set-up: {n} synthetic waveforms in "
+                  f"{time.perf_counter() - t:.1f} s")
+            counted[name], calls[name] = phase_long(name, x_long)
+            del x_long
+        t = time.perf_counter()
+        long_rows = phase_long_kernels(calls)
+        print(f"[6 long kernels] {time.perf_counter() - t:.1f} s")
         check("jax" not in sys.modules and "deltarice_tpu" not in sys.modules,
               "the port imported JAX or the JAX package")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    for row in kernels:
-        row["launches"] = launches.get(row["name"], 0)
-        row["on_main_path"] = row["name"] != "concentrate_packed"
-    print(json.dumps({"kernels": kernels}))
+    by_name = {row["name"]: row for row in kernels}
+    for row in long_rows:  # B3 keeps its Nab-shape row
+        by_name.setdefault(row["name"], row)
+    for row in by_name.values():
+        paths = {f"{path} {window}": n[row["name"]]
+                 for path, windows in counted.items()
+                 for window, n in windows.items() if n.get(row["name"])}
+        row["launches"] = sum(paths.values())
+        row["paths"] = paths
+        if row["name"] in STAGING_KERNELS:
+            row["note"] = ("not on the port's path: B2 and B9 store samples "
+                           "at their final index and make no staging")
+    print(f"[total] {time.perf_counter() - t_all:.1f} s")
+    print(json.dumps({"kernels": list(by_name.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

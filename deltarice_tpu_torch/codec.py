@@ -16,6 +16,10 @@ Split of responsibilities:
   the B1/B2 kernels, one thread per segment, between B4 transposes that
   give them coalesced sample-major / word-major arrays. Both kernels store
   at final offsets, so there is no staging or placement pass.
+* long segments (nEDM 81920, NOPTREX 500000 samples): the encode splits
+  each segment into P sub-blocks across threads and merges the sub-streams
+  at bit offsets in one concentration (B3 or B5); the decode can split each
+  stream speculatively (B9 + B6, ``DELTARICE_TPU_SPLIT_DECODE=1``).
 * host (numpy + the native C helpers): the variable-length framing — the
   header walk and the ragged gather / scatter at memcpy speed.
 
@@ -26,12 +30,17 @@ on the device and uint32 arrays on the host.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from .config import RiceConfig
+from .ops.concentrate import concentrate
 from .ops.pack_cuda import pack_encode
+from .ops.pack_ref import as_i32, as_u32
 from .ops.prefilter import prefilter_decode, prefilter_encode
+from .ops.split_decode import decode_split_parts, unpack_decode_split
 from .ops.transpose_cuda import transpose2d
 from .ops.unpack_cuda import unpack_decode
 
@@ -60,41 +69,106 @@ def encode_segments(x, nvalid, cfg: RiceConfig, max_words: int,
 
 
 def encode_segments_bits(x, nvalid, cfg: RiceConfig, max_words: int,
-                         prev0=None, device="cuda"):
+                         prev0=None, prefiltered: bool = False,
+                         device="cuda"):
     """:func:`encode_segments` plus exact per-stream bit counts and an
     optional initial delta state (``prev0``, delta filter only: the
-    sample before each segment). Returns (words, nwords, nbits) on
-    ``device``."""
+    sample before each segment) — what the sub-block split needs (streams
+    concatenate at bit offsets; delta chains continue across blocks).
+    ``prefiltered`` takes ``x`` as already pre-filtered values and skips the
+    filter (the generic-FIR split filters over a halo before splitting).
+    Returns (words, nwords, nbits) on ``device``."""
     x = _on(x, device, torch.int16)
     nv = _on(nvalid, device, torch.int32)
     p0 = None if prev0 is None else _on(prev0, device, torch.int32)
-    if not cfg.is_delta:
-        if p0 is not None:
-            raise ValueError("prev0 is only supported for the delta filter")
+    diff = cfg.is_delta and not prefiltered
+    if not cfg.is_delta and p0 is not None:
+        raise ValueError("prev0 is only supported for the delta filter")
+    if not cfg.is_delta and not prefiltered:
         x = prefilter_encode(x, cfg.filt)
     xt = transpose2d(x)
-    words_t, nwords, nbits = pack_encode(xt, nv, p0, cfg.k, cfg.is_delta,
-                                         max_words)
+    words_t, nwords, nbits = pack_encode(xt, nv, p0, cfg.k, diff, max_words)
     return transpose2d(words_t), nwords, nbits
 
 
+def _split_decode_enabled() -> bool:
+    """Speculative split decode (B9 + B6, :mod:`.ops.split_decode`) is off by
+    default, as in the JAX package, and read from the same variable:
+    ``DELTARICE_TPU_SPLIT_DECODE=1`` turns it on. The JAX default rests on a
+    TPU measurement; the port's default waits for the card's numbers."""
+    return os.environ.get("DELTARICE_TPU_SPLIT_DECODE", "0") == "1"
+
+
+def _decode_device_split(words_t: torch.Tensor, counts, n_samples: int,
+                         cfg: RiceConfig, parts: int, nvalid=None):
+    """Split decode of word-major streams: (samples (nseg, n_samples),
+    per-segment bad flags), both on the device. Flagged segments re-decode
+    exactly through :func:`_redecode_bad_rows`. The generic-FIR inverse
+    runs after the merge, as in :func:`decode_segments`."""
+    out, bad = unpack_decode_split(words_t, counts, n_samples, cfg.k,
+                                   cfg.is_delta, parts, nvalid)
+    if not cfg.is_delta:
+        out = prefilter_decode(out, cfg.filt)
+    return out, bad
+
+
+def _redecode_bad_rows(out_np: np.ndarray, bad, words_np: np.ndarray,
+                       n_samples: int, cfg: RiceConfig,
+                       device) -> np.ndarray:
+    """Exactly re-decode (B2) the segments flagged in ``bad``, in place."""
+    idx = np.nonzero(np.asarray(bad))[0]
+    if idx.size == 0:
+        return out_np
+    if not out_np.flags.writeable:
+        out_np = out_np.copy()
+    fixed = decode_segments(words_np[idx], n_samples, cfg, device)
+    out_np[idx] = fixed.cpu().numpy()
+    return out_np
+
+
 def decode_segments(words, n_samples: int, cfg: RiceConfig,
-                    device="cuda") -> torch.Tensor:
+                    device="cuda", counts=None, nvalid=None) -> torch.Tensor:
     """Decode per-segment word streams back to int16 samples.
 
     words: (num_segments, W) uint32 array, or int32 tensor of uint32 bit
     patterns, with at least one zero pad word per row.
+    counts / nvalid: optional per-segment word counts (from the header
+    walk) and valid-sample counts; with both and the split switch on
+    (:func:`_split_decode_enabled`), long streams decode speculatively in
+    parallel pieces and flagged segments re-decode exactly.
     Returns (num_segments, n_samples) int16 on ``device`` (the tail of short
     segments is garbage; callers slice by true counts).
     """
+    w, out, bad = _decode_dispatch(words, n_samples, cfg, device, counts,
+                                   nvalid)
+    if bad is not None and bool(bad.any()):
+        out = torch.from_numpy(_redecode_bad_rows(
+            out.cpu().numpy(), bad.cpu().numpy(), _host_words(w), n_samples,
+            cfg, device)).to(device)
+    return out
+
+
+def _decode_dispatch(words, n_samples: int, cfg: RiceConfig, device,
+                     counts=None, nvalid=None):
+    """Queue the decode of :func:`decode_segments` without waiting for the
+    card: (words on ``device``, samples, the split decode's per-segment
+    bad flags or None)."""
     if isinstance(words, np.ndarray):
         words = np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
     w = _on(words, device, torch.int32)
-    out_t = unpack_decode(transpose2d(w), n_samples, cfg.k, cfg.is_delta)
-    out = transpose2d(out_t)
+    parts = 1
+    if counts is not None and _split_decode_enabled():
+        parts = decode_split_parts(w.shape[0],
+                                   int(np.asarray(counts).max(initial=1)),
+                                   cfg.k)
+    if parts > 1:
+        return (w, *_decode_device_split(transpose2d(w), counts, n_samples,
+                                         cfg, parts, nvalid))
+    out = transpose2d(unpack_decode(transpose2d(w), n_samples, cfg.k,
+                                    cfg.is_delta))
     if not cfg.is_delta:
         out = prefilter_decode(out, cfg.filt)
-    return out
+    return w, out, None
 
 
 def _on(a, device, dtype) -> torch.Tensor:
@@ -163,6 +237,236 @@ def _host_words(words: torch.Tensor) -> np.ndarray:
     return words.cpu().numpy().view(np.uint32)
 
 
+# --- sub-block-split encode for long segments ---------------------------
+#
+# A Rice stream is a bit concatenation of per-sample codewords, and the
+# delta filter's only cross-sample state is the previous sample, so a long
+# segment encodes as P independent sub-blocks across threads (each seeded
+# with its predecessor's last sample) whose sub-streams then concatenate at
+# bit offsets, byte-identical to the serial pass. The policy and layout are
+# the JAX package's (``deltarice_tpu/codec.py:473-560``).
+
+_SPLIT_MIN_SUB = 8192    # don't split below this sub-block length
+_SPLIT_PACKED = 1 << 15  # sub-block length that keeps placement packed
+_LANE_TARGET = 1024      # one full TPU kernel block of lanes
+
+
+def _split_parts(nseg: int, length: int, cfg: RiceConfig) -> int:
+    """Sub-blocks per segment (1 = no split); ``nseg`` is the segments of
+    one chunk."""
+    if length < 2 * _SPLIT_MIN_SUB:
+        return 1
+    parts = 1
+    # fill the lane grid, then keep halving until the slot axis is packed
+    while (length // (2 * parts) >= _SPLIT_MIN_SUB
+           and (nseg * 2 * parts <= _LANE_TARGET
+                or length // parts >= _SPLIT_PACKED)):
+        parts *= 2
+    return parts
+
+
+def _split_layout(padded: np.ndarray, nvalid: np.ndarray, parts: int,
+                  halo: int = 0):
+    """(rows, L) -> ((rows*parts, halo+Ls), per-sub nvalid, per-sub prev0,
+    Ls).
+
+    ``halo`` leading samples per sub-block carry the predecessor's tail
+    (zeros for the first block) — what a generic causal FIR pre-filter
+    needs to produce the serial pass's outputs at block starts; the delta
+    path uses ``prev0`` (its entire recurrence state) instead.
+    """
+    rows, length = padded.shape
+    ls = -(-length // parts)
+    xp = padded
+    if parts * ls != length or halo:
+        xp = np.zeros((rows, halo + parts * ls), padded.dtype)
+        xp[:, halo : halo + length] = padded
+        if halo:
+            x3 = np.lib.stride_tricks.sliding_window_view(
+                xp, halo + ls, axis=1
+            )[:, ::ls][:, :parts]
+        else:
+            x3 = xp[:, halo:].reshape(rows, parts, ls)
+    else:
+        x3 = xp.reshape(rows, parts, ls)
+    prev0 = np.zeros((rows, parts), np.int32)
+    prev0[:, 1:] = x3[:, :-1, -1]
+    nv = np.clip(
+        nvalid[:, None] - np.arange(parts, dtype=np.int64)[None, :] * ls,
+        0, ls,
+    ).astype(np.int32)
+    return (np.ascontiguousarray(x3.reshape(rows * parts, halo + ls)),
+            nv.reshape(-1), prev0.reshape(-1), ls)
+
+
+def _encode_split_rows(padded2d: np.ndarray, nvalid_rows: np.ndarray,
+                       cfg: RiceConfig, parts: int, device):
+    """Sub-block-split encode of (rows, L) at rate 1: (words, nwords, nbits,
+    sub_length) on ``device``, one row per sub-block, words zero past each
+    sub-stream. Delta seeds each block with its predecessor's last sample;
+    generic FIR filters each block over a (ntaps-1)-sample halo of
+    preceding raw samples — both reproduce the serial filter outputs
+    exactly, so the merged stream is byte-identical."""
+    if cfg.is_delta:
+        xs, nv, p0, ls = _split_layout(padded2d, nvalid_rows, parts)
+        w, nw, nb = encode_segments_bits(xs, nv, cfg, cfg.max_words(ls),
+                                         prev0=p0, device=device)
+    else:
+        halo = len(cfg.filt) - 1
+        xs, nv, _p0, ls = _split_layout(padded2d, nvalid_rows, parts, halo)
+        d = prefilter_encode(_on(xs, device, torch.int16), cfg.filt)
+        w, nw, nb = encode_segments_bits(d[:, halo:], nv, cfg,
+                                         cfg.max_words(ls), prefiltered=True,
+                                         device=device)
+    return w, nw, nb, ls
+
+
+def _merge_device(words3: torch.Tensor, nbits2: torch.Tensor,
+                  out_w: int) -> torch.Tensor:
+    """Device sub-stream merge (``deltarice_tpu/codec.py:563-639``):
+    shifted-OR concatenation at bit offsets as ONE concentration.
+
+    Pre-shifting part p's words by its start-bit remainder r gives
+    ``sh[j] = src[j] >> r | src[j-1] << (32-r)``, whose word j lands at
+    output word ``w0_p + j`` — a displacement constant per part. Each
+    part's boundary tail word, which shares an output word with its
+    successor, is pre-ORed into the successor's first shifted word
+    (bit-disjoint by the packer's zero fill); where the successor starts
+    word-aligned, or there is none, the tail extends the part's own run
+    instead. Every output word then has exactly one source element.
+
+    words3: (rows, parts, w_in) int32 bit patterns, zero past each stream
+    and w_in above every part's last output word (see
+    :func:`merge_substreams_device`); nbits2: (rows, parts) exact bit
+    counts; every valid part but each row's last must span >= 2 output
+    words. Returns (rows, out_w) int32 bit patterns.
+    """
+    rows, parts, w_in = words3.shape
+    nb = nbits2.to(torch.int64)
+    base = torch.cumsum(nb, dim=1) - nb
+    w0 = base >> 5
+    r2 = base & 31
+    r = r2[:, :, None]
+    src = as_u32(words3)
+    prev = torch.nn.functional.pad(src[:, :, :-1], (1, 0))
+    sh = torch.where(r == 0, src,
+                     ((src >> r) | (prev << ((32 - r) & 31))) & 0xFFFFFFFF)
+    m_a = ((base + nb - 1) >> 5) - w0  # whole-word run (tail excluded)
+    valid = nb > 0
+    in_row = (m_a >= 0) & (m_a < w_in)
+    tails = torch.gather(sh, 2, m_a.clamp(0, w_in - 1)[:, :, None])[:, :, 0]
+    tails = torch.where(in_row, tails, 0)
+    # carry[p] = nearest preceding valid part's tail (skips empty parts)
+    carry = torch.zeros_like(tails)
+    c = torch.zeros_like(tails[:, 0])
+    for p in range(parts):
+        carry[:, p] = c
+        c = torch.where(valid[:, p], tails[:, p], c)
+    # extend[p]: keep the tail in part p's own run — the next valid part
+    # starts word-aligned or doesn't exist
+    extend = torch.zeros_like(valid)
+    nxt_aligned = torch.ones_like(valid[:, 0])
+    for p in reversed(range(parts)):
+        extend[:, p] = nxt_aligned
+        nxt_aligned = torch.where(valid[:, p], r2[:, p] == 0, nxt_aligned)
+    extend &= valid
+    sh[:, :, 0] |= torch.where(valid & (r2 != 0), carry, 0)
+    j_idx = torch.arange(w_in, device=words3.device)[None, None, :]
+    m3 = m_a[:, :, None]
+    valid_a = valid[:, :, None] & ((j_idx < m3)
+                                   | (extend[:, :, None] & (j_idx == m3)))
+    p_idx = torch.arange(parts, device=words3.device)[None, :]
+    disp_a = torch.where(valid_a, (p_idx * w_in - w0)[:, :, None], -1)
+    return concentrate(as_i32(sh).reshape(rows, parts * w_in),
+                       disp_a.to(torch.int32).reshape(rows, parts * w_in),
+                       out_w)
+
+
+def merge_substreams_device(words: torch.Tensor, nbits2: np.ndarray,
+                            parts: int):
+    """Merge sub-streams on the device: (merged uint32 (rows, maxw) on the
+    host, nwords) — or None when a middle sub-stream holds fewer than 32
+    bits (the merge needs whole words there; the split layout only makes
+    that for a segment's last sub-block, but callers of the public host
+    merge may not). ``words`` is the (rows*parts, W) split-encode output;
+    only about the compressed bytes cross to the host.
+
+    The shifted plane is one word wider than the widest sub-stream, so a
+    part whose bits fill its last word's phase-shifted spill keeps its tail
+    (the JAX package sizes it to the widest sub-stream alone).
+    """
+    nb = np.ascontiguousarray(nbits2, dtype=np.int64)
+    rows = nb.shape[0]
+    nz = nb > 0
+    if nz.any():
+        # every valid part except each row's last must span >= 2 output
+        # words (its boundary word must not also be its first)
+        base = np.cumsum(nb, axis=1) - nb
+        m_a = ((base + nb - 1) >> 5) - (base >> 5)
+        idx = np.arange(nb.shape[1])[None, :]
+        last_nz = nb.shape[1] - 1 - np.argmax(nz[:, ::-1], axis=1)
+        if (nz & (m_a < 1) & (idx != last_nz[:, None])).any():
+            return None
+    nwords = (nb.sum(axis=1) + 31) >> 5
+    maxw = int(nwords.max(initial=0))
+    out_w = max(-(-(maxw + 1) // _WORD_BUCKET) * _WORD_BUCKET, parts)
+    sub = int((nb.max(initial=0) + 31) >> 5)
+    w = -(-(sub + 1) // _WORD_BUCKET) * _WORD_BUCKET
+    w3 = words[:, : min(w, words.shape[1])]
+    if w3.shape[1] < w:
+        w3 = torch.nn.functional.pad(w3, (0, w - w3.shape[1]))
+    merged = _merge_device(w3.reshape(rows, parts, w),
+                           torch.from_numpy(nb).to(words.device), out_w)
+    return _host_words(merged[:, :maxw]), nwords
+
+
+def merge_substreams(words3: np.ndarray, nbits2: np.ndarray):
+    """Concatenate per-sub-block word streams at bit offsets (host side).
+
+    words3: (rows, P, W) uint32 packed sub-streams, zero beyond each
+      stream's words (the packer's zero fill makes the shifted OR
+      collision-free).
+    nbits2: (rows, P) exact bit lengths.
+
+    Returns (merged (rows, max_words) uint32, nwords (rows,) int64) —
+    byte-identical to serially encoding each row's full waveform. Runs in
+    the native C library (OpenMP) when built, numpy otherwise.
+    """
+    rows, parts, w_in = words3.shape
+    nb64 = np.ascontiguousarray(nbits2, dtype=np.int64)
+    nwords = (nb64.sum(axis=1) + 31) >> 5
+    maxw = int(nwords.max(initial=0))
+    out = np.zeros((rows, maxw + 1), dtype=np.uint32)
+    from .native import codec_lib
+
+    lib = codec_lib()
+    if lib is not None:
+        words3 = np.ascontiguousarray(words3, dtype=np.uint32)
+        lib.dr_merge_substreams(words3.ctypes.data, rows, parts, w_in,
+                                nb64.ctypes.data, maxw + 1, out.ctypes.data)
+        return out[:, :maxw], nwords
+    # each part's words shift by the row's bit phase and OR into place; a
+    # row's columns within one part are distinct, and words past a stream
+    # are zero, so over-width stores OR zeros into the scratch column
+    base = np.cumsum(nb64, axis=1) - nb64
+    ridx = np.arange(rows)[:, None]
+    for p in range(parts):
+        mmax = int((nb64[:, p].max(initial=0) + 31) >> 5)
+        if mmax == 0:
+            continue
+        w = words3[:, p, :mmax]
+        r = (base[:, p] & 31).astype(np.uint32)[:, None]
+        w0 = (base[:, p] >> 5)[:, None]
+        phase = r != 0
+        lo = np.where(phase, w >> r, w)
+        hi = np.where(phase, w << ((np.uint32(32) - r) & np.uint32(31)),
+                      np.uint32(0))
+        cols = np.minimum(w0 + np.arange(mmax, dtype=np.int64)[None, :], maxw)
+        out[ridx, cols] |= lo
+        out[ridx, np.minimum(cols + 1, maxw)] |= hi
+    return out[:, :maxw], nwords
+
+
 def compress(data, cfg: RiceConfig = RiceConfig(), device="cuda") -> bytes:
     """Compress one chunk of int16 samples to the framed byte stream.
 
@@ -196,16 +500,21 @@ def compress_batch_dispatch(chunks, cfg: RiceConfig = RiceConfig(),
     """
     arrs = [as_int16(c).ravel() for c in chunks]
     if not arrs:
-        return (arrs, 0, None, None, device)
+        return (arrs, 0, None, None, device, None, 1)
     total = arrs[0].size
     if any(a.size != total for a in arrs):
         raise ValueError("compress_batch requires equal-sized chunks")
     if total == 0:  # header-only streams, matching the native C codec
-        return (arrs, 0, None, None, device)
+        return (arrs, 0, None, None, device, None, 1)
     x2, nv, length = _padded_rows(arrs, total, cfg)
+    parts = _split_parts(_segment_layout(total, cfg)[0], length, cfg)
+    if parts > 1:  # long segments: sub-block split, merged in collect
+        words, nwords, nbits, _ls = _encode_split_rows(x2, nv, cfg, parts,
+                                                       device)
+        return (arrs, total, words, nwords, device, nbits, parts)
     cap = _words_hint(x2, cfg, length)
     words, nwords = encode_segments(x2, nv, cfg, cap, device)
-    return (arrs, total, words, nwords, device)
+    return (arrs, total, words, nwords, device, None, 1)
 
 
 def _padded_rows(arrs, total: int, cfg: RiceConfig):
@@ -220,8 +529,11 @@ def _padded_rows(arrs, total: int, cfg: RiceConfig):
 def compress_batch_collect(handle, cfg: RiceConfig = RiceConfig(),
                            verify: bool = False,
                            retries: int = 2) -> list[bytes]:
-    """Fetch and frame the streams of a :func:`compress_batch_dispatch`."""
-    arrs, total, words, nwords, device = handle
+    """Fetch and frame the streams of a :func:`compress_batch_dispatch`.
+
+    Split sub-streams merge on the card when they are there (B3 or B5), and
+    on the host for a CPU device."""
+    arrs, total, words, nwords, device, nbits, parts = handle
     if not arrs:
         return []
     if total == 0:
@@ -231,15 +543,30 @@ def compress_batch_collect(handle, cfg: RiceConfig = RiceConfig(),
     # fetch the word counts first, then move only ~compressed-size bytes
     nw = nwords.cpu().numpy()
     w = max(int(nw.max(initial=0)), 1)
-    cap = words.shape[1]
-    wn = _host_words(words[:, : min(w, cap)])
-    if w > cap:
-        wn = np.pad(wn, ((0, 0), (0, w - cap)))
-    over = nw > cap
-    if over.any():  # rows past the cap re-encode exactly at the full bound
-        x2, nv, length = _padded_rows(arrs, total, cfg)
-        wn = _reencode_bad_rows(wn, x2, nv, over, cfg, cfg.max_words(length),
-                                device)
+    if parts > 1:
+        nb2 = nbits.cpu().numpy().reshape(nchunks * nseg, parts)
+        if words.device.type == "cpu":
+            wn, nw = merge_substreams(
+                _host_words(words[:, :w]).reshape(nchunks * nseg, parts, w),
+                nb2)
+        else:
+            res = merge_substreams_device(words, nb2, parts)
+            if res is None:
+                # _split_layout makes every sub-block before a segment's
+                # last non-empty one >= _SPLIT_MIN_SUB samples, so >= 32 bits
+                raise RuntimeError("split encode made a middle sub-stream "
+                                   "shorter than one word")
+            wn, nw = res
+    else:
+        cap = words.shape[1]
+        wn = _host_words(words[:, : min(w, cap)])
+        if w > cap:
+            wn = np.pad(wn, ((0, 0), (0, w - cap)))
+        over = nw > cap
+        if over.any():  # rows past the cap re-encode exactly at full bound
+            x2, nv, length = _padded_rows(arrs, total, cfg)
+            wn = _reencode_bad_rows(wn, x2, nv, over, cfg,
+                                    cfg.max_words(length), device)
     nw = nw.reshape(nchunks, nseg)
     wn = wn.reshape(nchunks, nseg, -1)
     streams = [frame_stream(total, wn[c], nw[c]) for c in range(nchunks)]
@@ -313,7 +640,7 @@ def decompress_batch_dispatch(streams, cfg: RiceConfig = RiceConfig(),
     :func:`decompress_batch_collect`."""
     streams = list(streams)
     if not streams:
-        return (0, 0, [])
+        return (0, 0, None, [])
     bufs = [np.frombuffer(memoryview(s), dtype="<u4") for s in streams]
     if any(b.size == 0 for b in bufs):
         raise ValueError("truncated Delta-Rice stream")
@@ -321,8 +648,8 @@ def decompress_batch_dispatch(streams, cfg: RiceConfig = RiceConfig(),
     if any(int(b[0]) != total for b in bufs):
         raise ValueError("decompress_batch requires equal-sized chunks")
     if total == 0:
-        return (len(bufs), 0, [])
-    nseg, length, _nvalid = _segment_layout(total, cfg)
+        return (len(bufs), 0, None, [])
+    nseg, length, nvalid = _segment_layout(total, cfg)
     by_bucket: dict[int, list[int]] = {}
     per_chunk = []
     for i, buf in enumerate(bufs):
@@ -336,21 +663,33 @@ def decompress_batch_dispatch(streams, cfg: RiceConfig = RiceConfig(),
         for j, i in enumerate(idxs):
             buf, counts, starts = per_chunk[i]
             words[j] = gather_segments(buf, counts, starts, bucket)
-        dec = decode_segments(words.reshape(-1, bucket), length, cfg, device)
-        pending.append((idxs, dec))
-    return (len(bufs), total, pending)
+        words2 = words.reshape(-1, bucket)
+        # the split decode's flags stay on the device until collect, so
+        # this dispatch never waits for the card
+        _w, dec, bad = _decode_dispatch(
+            words2, length, cfg, device,
+            np.concatenate([per_chunk[i][1] for i in idxs]),
+            np.tile(nvalid, len(idxs)))
+        pending.append((idxs, dec, bad, words2))
+    return (len(bufs), total, (length, cfg, device), pending)
 
 
 def decompress_batch_collect(handle) -> list[np.ndarray]:
-    """Fetch the samples of a :func:`decompress_batch_dispatch`."""
-    n, total, pending = handle
+    """Fetch the samples of a :func:`decompress_batch_dispatch`; segments
+    the split decode flagged re-decode exactly (B2) here."""
+    n, total, meta, pending = handle
     if n == 0:
         return []
     if total == 0:
         return [np.zeros(0, dtype=np.int16) for _ in range(n)]
+    length, cfg, device = meta
     out: list[np.ndarray | None] = [None] * n
-    for idxs, dec in pending:
-        dec_np = dec.cpu().numpy().reshape(len(idxs), -1)
+    for idxs, dec, bad, words2 in pending:
+        dec_np = dec.cpu().numpy()
+        if bad is not None:
+            dec_np = _redecode_bad_rows(dec_np, bad.cpu().numpy(), words2,
+                                        length, cfg, device)
+        dec_np = dec_np.reshape(len(idxs), -1)
         for j, i in enumerate(idxs):
             out[i] = dec_np[j, :total].copy()
     return out

@@ -51,6 +51,51 @@ int dr_concentrate_packed(const int32_t *lead, const int16_t *follow,
                           int32_t *out, int64_t rows, int64_t r,
                           int64_t n_out, void *stream);
 
+/* Two-plane concentration, any slot axis and displacement: live slot j of
+ * row i (disp[i, j] >= 0) stores values[i, j] at out[i, j - disp[i, j]]
+ * (out (rows, n_out) int32, zeroed by the caller; stores past n_out are
+ * dropped). */
+int dr_concentrate_wide(const int32_t *values, const int32_t *disp,
+                        int32_t *out, int64_t rows, int64_t r, int64_t n_out,
+                        void *stream);
+
+/* One-plane concentration of ((disp << 16) | halfword) ^ 2^31 (dead =
+ * INT32_MIN): the halfword of live slot j lands at out[i, j - disp],
+ * zero-extended (out zeroed by the caller). */
+int dr_concentrate_wide16(const int32_t *plane, int32_t *out, int64_t rows,
+                          int64_t r, int64_t n_out, void *stream);
+
+/* Concentration in the tiled layout (blocks, rows_in, lanes), row
+ * slot * sb + s holding slot `slot` of row (b, s, lane). mode 0: lead is
+ * disp << 16 | halfword (dead INT32_MIN, disp < 2^15), follow (may be NULL)
+ * the low halfword; mode 1: lead is ((disp << 16) | halfword) ^ 2^31 (dead
+ * INT32_MIN, follow NULL). Live slot j lands at slot j - disp of out
+ * (blocks, rows_out, lanes), zeroed by the caller: int16 halfwords, or with
+ * emit_u32 int32 words (hi << 16 | lo with a follower, else the halfword
+ * zero-extended). Destinations at or past rows_out / sb are dropped. */
+int dr_concentrate_tiled(const int32_t *lead, const int16_t *follow,
+                         void *out, int64_t blocks, int64_t rows_in,
+                         int64_t lanes, int64_t rows_out, int64_t sb, int mode,
+                         int emit_u32, void *stream);
+
+/* The same layout with explicit planes: values int16, disp int32 (>= 0
+ * live, negative dead), out int16 (blocks, rows_out, lanes). */
+int dr_concentrate_tiled_vd(const int16_t *values, const int32_t *disp,
+                            int16_t *out, int64_t blocks, int64_t rows_in,
+                            int64_t lanes, int64_t rows_out, int64_t sb,
+                            void *stream);
+
+/* Speculative split decode of words_t (w, nseg) into nseg * parts
+ * sub-blocks of wsub words, each warmed up over halo words: row
+ * s * parts + p stores its samples at local[row, n] (n < lw; local
+ * (rows, lw) int16, zeroed by the caller) and its entry phase, exit
+ * phase, local count and final delta state at meta[0..3][row]. wv
+ * (rows,) is each row's owned word count. */
+int dr_split_decode(const int32_t *words_t, const int32_t *wv, int16_t *local,
+                    int32_t *meta, int64_t w, int64_t nseg, int64_t parts,
+                    int64_t wsub, int64_t halo, int64_t lw, int k, int delta,
+                    void *stream);
+
 #ifdef __cplusplus
 }
 #endif

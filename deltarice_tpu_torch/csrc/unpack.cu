@@ -10,8 +10,8 @@
  * service rate: the decode is exact for any stream.
  *
  * One thread decodes one segment with a 64-bit bit cursor. The codeword at
- * the cursor is read from the 32-bit window of words (w[t], w[t+1]); its
- * quotient is min(clz(window), 8), 8 marking the 25-bit escape. The cursor
+ * the cursor is read from the 32-bit window of words (w[t], w[t+1]) by
+ * dr::rice_decode (rice_decode.h, shared with B9's split_decode.cu). The cursor
  * is clamped at 32 * (W - 1), as the reference's scan decoder
  * (ops/pack_xla.py::unpack_bits) does, so no read leaves the segment's
  * column; samples past a short segment's end are garbage by contract. A
@@ -28,12 +28,11 @@
 #include <cuda_runtime.h>
 
 #include "kernels.h"
+#include "rice_decode.h"
 
 namespace {
 
 constexpr int kBlock = 128;
-constexpr unsigned kEscapeQ = 8;
-constexpr int kEscapeLen = 25;
 
 __device__ __forceinline__ uint32_t load_word(const uint32_t *__restrict__ w,
                                               int64_t t, int64_t nw,
@@ -48,7 +47,6 @@ __global__ void unpack_kernel(const uint32_t *__restrict__ words_t,
   const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= nseg) return;
   const int64_t maxbit = 32 * (nw - 1);
-  const uint32_t kmask = (1u << k) - 1u;
   int64_t bit = 0;
   int64_t t = 0;  // word holding the cursor: w0 = w[t], w1 = w[t+1], w2 = w[t+2]
   uint32_t w0 = load_word(words_t, 0, nw, nseg, s);
@@ -56,20 +54,9 @@ __global__ void unpack_kernel(const uint32_t *__restrict__ words_t,
   uint32_t w2 = load_word(words_t, 2, nw, nseg, s);
   int32_t run = 0;
   for (int64_t i = 0; i < n_samples; ++i) {
-    const unsigned off = (unsigned)(bit & 31);
-    const uint32_t win = (w0 << off) | ((w1 >> (31u - off)) >> 1);
-    unsigned q = __clz(win);  // 32 for a zero window
-    if (q > kEscapeQ) q = kEscapeQ;
-    uint32_t u;
     int len;
-    if (q == kEscapeQ) {
-      u = (win >> (32 - kEscapeLen)) & 0xFFFFu;
-      len = kEscapeLen;
-    } else {
-      u = (q << k) | ((win >> (31u - (unsigned)k - q)) & kmask);
-      len = (int)q + 1 + k;
-    }
-    const int32_t v = (int32_t)((u >> 1) ^ (0u - (u & 1u)));
+    const uint32_t u = dr::rice_decode(w0, w1, (unsigned)(bit & 31), k, &len);
+    const int32_t v = dr::unzigzag(u);
     if (delta) {
       run = (int16_t)(run + v);
       out_t[i * nseg + s] = (int16_t)run;

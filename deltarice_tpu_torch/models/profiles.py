@@ -16,11 +16,16 @@ benchmarking, not physics.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+import math
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from ..config import RiceConfig
+
+#: exp(-x) is exactly 0.0 in float64 for every x >= this
+_EXP_ZERO = 750.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,22 +47,36 @@ class DatasetProfile:
 
     def synthetic(self, n_waveforms: int, seed: int = 0,
                   length: int | None = None) -> np.ndarray:
-        """(n_waveforms, L) int16 synthetic waveforms for benchmarks."""
+        """(n_waveforms, L) int16 synthetic waveforms for benchmarks.
+
+        The same int16 waveforms as the JAX package's generator for the
+        same seed: the random draws come in its order, and each pulse term
+        ``amp * exp(-(t - t0) / tau)`` is added where it is not exactly
+        zero — from ``t0`` on (the term is multiplied by ``t >= t0``) and
+        until ``exp`` underflows to 0.0 — with the rows filled in a thread
+        pool.
+        """
         length = length or self.waveform_length
         rng = np.random.default_rng(seed)
-        noise = rng.normal(0.0, self.noise_sigma, (n_waveforms, length))
-        base = np.cumsum(np.round(noise), axis=-1)  # random-walk baseline
+        base = rng.normal(0.0, self.noise_sigma, (n_waveforms, length))
+        np.round(base, out=base)
+        np.cumsum(base, axis=-1, out=base)  # random-walk baseline
         # occasional detector pulses: exponential-decay bumps
         n_pulses = max(1, length // 2000)
-        t = np.arange(length)
-        for i in range(n_waveforms):
-            for _ in range(rng.integers(0, n_pulses + 1)):
-                t0 = rng.integers(0, length)
-                amp = rng.uniform(200, 4000)
-                tau = rng.uniform(50, 400)
-                base[i] += amp * np.exp(-np.maximum(t - t0, 0) / tau) * (
-                    t >= t0
-                )
+        pulses = [
+            [(int(rng.integers(0, length)), rng.uniform(200, 4000),
+              rng.uniform(50, 400))
+             for _ in range(rng.integers(0, n_pulses + 1))]
+            for _ in range(n_waveforms)
+        ]
+
+        def add_pulses(i: int) -> None:
+            for t0, amp, tau in pulses[i]:
+                end = min(length, t0 + math.ceil(_EXP_ZERO * tau) + 1)
+                base[i, t0:end] += amp * np.exp(-np.arange(end - t0) / tau)
+
+        with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+            list(ex.map(add_pulses, range(n_waveforms)))
         return np.clip(base, -32768, 32767).astype(np.int16)
 
 

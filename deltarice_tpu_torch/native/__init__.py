@@ -47,6 +47,7 @@ _SIGNATURES = {
     "dr_walk_headers": (ctypes.c_int, [_P, _SZ, _SZ, _P, _P]),
     "dr_gather_rows": (None, [_P, _SZ, _P, _P, _SZ, _P]),
     "dr_frame_rows": (None, [_P, _SZ, _SZ, _P, _P, ctypes.c_uint32, _P]),
+    "dr_merge_substreams": (None, [_P, _SZ, _SZ, _SZ, _P, _SZ, _P]),
     "dr_config_parse": (ctypes.c_int, [_SZ, _P, ctypes.POINTER(DrConfig)]),
     "dr_config_free": (None, [ctypes.POINTER(DrConfig)]),
     "dr_compress": (ctypes.c_int, [_P, _SZ, ctypes.POINTER(DrConfig),

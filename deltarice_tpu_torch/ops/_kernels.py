@@ -1,8 +1,9 @@
 """Build and ctypes binding of the CUDA kernels in ``deltarice_tpu_torch/csrc``.
 
 The sources have a plain C interface (``csrc/kernels.h``), so they compile
-with ``nvcc`` alone, without PyTorch's headers, into one shared library
-under ``deltarice_tpu_torch/build/``; the file name carries a digest of the
+with ``nvcc`` alone, without PyTorch's headers: one ``nvcc -c`` per source,
+all started together, then one link into a shared library under
+``deltarice_tpu_torch/build/``. The file name carries a digest of the
 sources and flags, so an edited source never loads a stale build. The
 build runs at the first kernel launch of a process, never at import.
 
@@ -27,7 +28,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[1] / "build"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -38,6 +39,14 @@ _SIGNATURES = {
     "dr_pack_encode": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P],
     "dr_unpack_decode": [_P, _P, _I64, _I64, _I64, _I, _I, _P],
     "dr_concentrate_packed": [_P, _P, _P, _I64, _I64, _I64, _P],
+    "dr_concentrate_wide": [_P, _P, _P, _I64, _I64, _I64, _P],
+    "dr_concentrate_wide16": [_P, _P, _I64, _I64, _I64, _P],
+    "dr_concentrate_tiled": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I,
+                             _I, _P],
+    "dr_concentrate_tiled_vd": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                                _P],
+    "dr_split_decode": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
+                        _I, _I, _P],
 }
 
 #: kernel launches per wrapper name, counted where each wrapper launches
@@ -74,25 +83,38 @@ def library_path() -> Path:
 
 def build(verbose: bool = False) -> Path:
     """Compile every ``csrc/*.cu`` into one shared library (idempotent;
-    atomic replace, so a concurrent process never loads a partial file)."""
+    atomic replace, so a concurrent process never loads a partial file).
+    The sources compile in parallel, one ``nvcc`` process each."""
     lib = library_path()
     if lib.is_file():
         return lib
     BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", tmp, *map(str, sorted(CSRC.glob("*.cu")))]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if verbose or res.returncode != 0:
-            print(res.stdout + res.stderr)
+    nvcc = _nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmpdir:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            objs.append(obj)
+            procs.append((src.name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for name, proc in procs:
+            out = proc.communicate()[0]
+            if verbose or proc.returncode != 0:
+                print(f"nvcc {name}:\n{out}")
+            if proc.returncode != 0:
+                failed.append(name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}")
+        tmp = os.path.join(tmpdir, "lib.so")
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed (rc={res.returncode})")
+            print(res.stdout + res.stderr)
+            raise RuntimeError(f"nvcc link failed (rc={res.returncode})")
         os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return lib
 
 

@@ -1,9 +1,20 @@
-"""B3: packed concentration of "sorted with gaps" rows — CUDA kernel
-``csrc/concentrate.cu``, the counterpart of ``concentrate_packed``.
+"""Concentration of "sorted with gaps" rows: every live slot moves left by
+its displacement (slot - destination; destinations distinct and strictly
+increasing along the row), and slots nothing reaches come out zero.
 
-The port's codec kernels store words and samples at their final offsets
-and do not need it; it serves kernels that stage (slot = sample index, one
-live slot per completed word) as the TPU encoder does.
+* B3 ``concentrate_packed`` — CUDA kernel ``csrc/concentrate.cu``, the
+  counterpart of ``concentrate_packed``: packed ``disp << 16 | halfword``
+  planes, slot axes and displacements below 2^15. The nEDM sub-stream merge
+  takes it (through :mod:`.concentrate`).
+* B5 ``concentrate_wide`` — ``csrc/concentrate_wide.cu``, the counterpart
+  of ``_concentrate_wide``: two int32 planes, any width. The NOPTREX
+  sub-stream merge takes it.
+* B6 ``concentrate_wide16`` — ``csrc/concentrate_wide.cu``, the
+  counterpart of ``concentrate_wide16_plane``: one sign-biased plane. The
+  split decode's row merge takes it.
+
+Each kernel is a scatter to ``slot - disp``; each plain version is the
+Nassimi-Sahni butterfly the TPU kernels run, in torch.
 """
 
 from __future__ import annotations
@@ -21,6 +32,14 @@ def _shift_left(x: torch.Tensor, s: int, fill: int) -> torch.Tensor:
     out = torch.full_like(x, fill)
     out[:, : x.shape[1] - s] = x[:, s:]
     return out
+
+
+def _fit_cols(x: torch.Tensor, n_out: int) -> torch.Tensor:
+    """First ``n_out`` columns, zero-padded where the slot axis is
+    narrower."""
+    if x.shape[1] < n_out:
+        x = torch.nn.functional.pad(x, (0, n_out - x.shape[1]))
+    return x[:, :n_out].contiguous()
 
 
 def concentrate_packed_plain(planes, n_out: int, wide: bool):
@@ -127,4 +146,138 @@ def concentrate_packed(planes, n_out: int, wide: bool) -> torch.Tensor:
     )
     _kernels.check(rc, "concentrate_packed")
     _kernels.launches["concentrate_packed"] += 1
+    return out
+
+
+def concentrate_wide_plain(values: torch.Tensor, disp: torch.Tensor,
+                           n_out: int) -> torch.Tensor:
+    """Plain torch version of :func:`concentrate_wide`: the LSB-first
+    two-plane butterfly of ``deltarice_tpu/ops/concentrate.py:90-102``,
+    keeping what arrived home (displacement 0) as the TPU kernel does."""
+    v = values.to(torch.int32)
+    d = disp
+    r = v.shape[1]
+    for b in range(max(1, (r - 1).bit_length())):
+        s = 1 << b
+        if s >= r:
+            break
+        vs = _shift_left(v, s, 0)
+        ds = _shift_left(d, s, -1)
+        moving = (ds >= 0) & ((ds & s) != 0)
+        staying = (d >= 0) & ((d & s) == 0)
+        v = torch.where(moving, vs, torch.where(staying, v, 0))
+        d = torch.where(moving, ds - s, torch.where(staying, d, -1))
+    return _fit_cols(torch.where(d == 0, v, 0), n_out).to(values.dtype)
+
+
+def concentrate_wide(values: torch.Tensor, disp: torch.Tensor,
+                     n_out: int) -> torch.Tensor:
+    """Concentrate a (payload, displacement) pair of planes of any width.
+
+    Args:
+      values: (rows, R) int16, or int32 (32-bit payloads as uint32 bit
+        patterns).
+      disp: (rows, R) int32 ``slot - destination`` for live slots (>= 0,
+        destinations strictly increasing along the row), negative for dead.
+      n_out: output columns; destinations at or past it are dropped.
+
+    Returns:
+      (rows, n_out) of ``values``' dtype, destination j at column j; columns
+      nothing reaches are zero.
+
+    A CUDA tensor launches the kernel; a CPU tensor takes
+    :func:`concentrate_wide_plain`.
+    """
+    if values.dtype not in (torch.int16, torch.int32):
+        raise TypeError(f"values must be int16 or int32, got {values.dtype}")
+    _kernels.require(values, "values", values.dtype, 2)
+    _kernels.require(disp, "disp", torch.int32, 2, values.device)
+    if disp.shape != values.shape:
+        raise ValueError("values and disp planes differ in shape")
+    if n_out < 0:
+        raise ValueError(f"n_out must be >= 0, got {n_out}")
+    if not _kernels.route(values):
+        return concentrate_wide_plain(values, disp, n_out)
+    rows, r = values.shape
+    v = values.to(torch.int32).contiguous()
+    out = torch.zeros((rows, n_out), dtype=torch.int32, device=values.device)
+    rc = _kernels.library().dr_concentrate_wide(
+        v.data_ptr(), disp.data_ptr(), out.data_ptr(), rows, r, n_out,
+        _kernels.stream(),
+    )
+    _kernels.check(rc, "concentrate_wide")
+    _kernels.launches["concentrate_wide"] += 1
+    # int16 payloads came in sign-extended; their low halfword goes back
+    return out.to(values.dtype)
+
+
+def biased_plane(disp: torch.Tensor, half: torch.Tensor) -> torch.Tensor:
+    """``((disp << 16) | half) ^ 2^31`` as int32, for 0 <= disp < 2^16 and
+    0 <= half < 2^16, computed as ``(disp - 2^15) * 2^16 + half`` so that
+    no int32 operation overflows. Dead slots are :data:`DEAD`, the image of
+    (disp 0, half 0)."""
+    return ((disp.to(torch.int32) - (1 << 15)) * (1 << 16)
+            + half.to(torch.int32))
+
+
+def _w16_pass(p: torch.Tensor, sh: torch.Tensor, disp_bit: int):
+    """One butterfly pass on the sign-biased plane routing on displacement
+    bit ``disp_bit`` (``concentrate_pallas.py:826-847``): signed max of the
+    staying and the arriving element realises the unsigned order, and dead
+    (INT32_MIN) loses every max."""
+    bit = 16 + disp_bit
+    if bit == 31:
+        stay = torch.where((p & DEAD) != 0, p, DEAD)
+        move = torch.where((sh & DEAD) == 0, sh ^ DEAD, DEAD)
+    else:
+        m = 1 << bit
+        stay = torch.where((p & m) == 0, p, DEAD)
+        move = torch.where((sh & m) != 0, sh ^ m, DEAD)
+    return torch.maximum(stay, move)
+
+
+def concentrate_wide16_plain(plane: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Plain torch version of :func:`concentrate_wide16`: the sign-biased
+    one-plane butterfly of ``_wide16_low_kernel`` / ``_wide16_high_kernel``,
+    then the home select of ``_w16_home``."""
+    p = plane
+    r = p.shape[1]
+    for b in range(16):
+        s = 1 << b
+        if s >= r:
+            break
+        p = _w16_pass(p, _shift_left(p, s, DEAD), b)
+    home = torch.where((p & -65536) == DEAD, p & 0xFFFF, 0)
+    return _fit_cols(home, n_out)
+
+
+def concentrate_wide16(plane: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Concentrate one sign-biased plane (see :func:`biased_plane`).
+
+    Args:
+      plane: (rows, R) int32 ``((disp << 16) | halfword) ^ 2^31`` for live
+        slots (disp < 2^16, destinations ``slot - disp`` strictly
+        increasing along the row), INT32_MIN for dead ones. A live 0 at
+        displacement 0 equals the dead marker and still reads back 0.
+      n_out: output columns; destinations at or past it are dropped.
+
+    Returns:
+      (rows, n_out) int32 halfwords, zero-extended (the caller casts);
+      columns nothing reaches are zero.
+
+    A CUDA tensor launches the kernel; a CPU tensor takes
+    :func:`concentrate_wide16_plain`.
+    """
+    _kernels.require(plane, "plane", torch.int32, 2)
+    if n_out < 0:
+        raise ValueError(f"n_out must be >= 0, got {n_out}")
+    if not _kernels.route(plane):
+        return concentrate_wide16_plain(plane, n_out)
+    rows, r = plane.shape
+    out = torch.zeros((rows, n_out), dtype=torch.int32, device=plane.device)
+    rc = _kernels.library().dr_concentrate_wide16(
+        plane.data_ptr(), out.data_ptr(), rows, r, n_out, _kernels.stream(),
+    )
+    _kernels.check(rc, "concentrate_wide16")
+    _kernels.launches["concentrate_wide16"] += 1
     return out

@@ -87,23 +87,35 @@ def unpack_bits(words: torch.Tensor, n_samples: int, k: int) -> torch.Tensor:
     rows, w = words.shape
     wu = as_u32(words)
     maxbit = 32 * (w - 1)
-    kmask = (1 << k) - 1
     bit = torch.zeros(rows, dtype=torch.int64, device=words.device)
     out = torch.empty(rows, n_samples, dtype=torch.int64, device=words.device)
-    # thresholds: the window has >= t leading zeros iff win < 2**(32-t)
-    limits = torch.tensor([1 << (32 - t) for t in range(1, ESCAPE_Q + 1)],
-                          dtype=torch.int64, device=words.device)
     for i in range(n_samples):
         wi = (bit >> 5).unsqueeze(1)
         w0 = torch.gather(wu, 1, wi).squeeze(1)
         w1 = torch.gather(wu, 1, (wi + 1).clamp(max=w - 1)).squeeze(1)
-        off = bit & 31
-        win = ((w0 << off) | ((w1 >> (31 - off)) >> 1)) & 0xFFFFFFFF
-        q = (win.unsqueeze(1) < limits).sum(dim=1)  # min(clz(win), 8)
-        esc = q == ESCAPE_Q
-        u_plain = (q << k) | ((win >> (31 - k - q).clamp(min=0)) & kmask)
-        u_esc = (win >> (32 - ESCAPE_LEN)) & 0xFFFF
-        out[:, i] = torch.where(esc, u_esc, u_plain)
-        clen = torch.where(esc, ESCAPE_LEN, q + 1 + k)
+        out[:, i], clen = decode_codeword(w0, w1, bit & 31, k)
         bit = (bit + clen).clamp(max=maxbit)
     return out
+
+
+def decode_codeword(w0: torch.Tensor, w1: torch.Tensor, off: torch.Tensor,
+                    k: int):
+    """(zigzag value, bit length), both int64, of the codeword starting at
+    bit ``off`` (< 32) of the window (w0, w1) — int64 words in [0, 2**32).
+    The plain twin of the kernels' ``csrc/rice_decode.h``.
+
+    The quotient is min(clz(window), 8), 8 marking the escape: the leading
+    zeros of the window's top byte come from the float32 exponent of that
+    byte (exact for 1..255; 0 gives the escape), as the TPU kernel's
+    ``_decode_one`` computes them.
+    """
+    win = ((w0 << off) | ((w1 >> (31 - off)) >> 1)) & 0xFFFFFFFF
+    top8 = (win >> 24).to(torch.float32)
+    exp = top8.view(torch.int32).to(torch.int64) >> 23
+    q = (134 - exp).clamp(max=ESCAPE_Q)
+    esc = q == ESCAPE_Q
+    kmask = (1 << k) - 1
+    u_plain = (q << k) | ((win >> (31 - k - q).clamp(min=0)) & kmask)
+    u_esc = (win >> (32 - ESCAPE_LEN)) & 0xFFFF
+    return (torch.where(esc, u_esc, u_plain),
+            torch.where(esc, ESCAPE_LEN, q + 1 + k))

@@ -84,8 +84,8 @@ def test_dispatch_collect_equals_batch():
 
 
 def test_long_segment_encodes_serially_to_the_split_bytes():
-    # JAX splits a 20000-sample segment into sub-streams and merges them
-    # at bit offsets; the port encodes it serially — same bytes
+    # both packages split a 20000-sample segment into sub-streams and
+    # merge them at bit offsets — the bytes of the serial encode
     cfg, jcfg = _cfg((8,))
     x = _nab(1, 20000, 5)[0]
     assert jcodec._split_parts(1, 20000, jcfg) > 1

@@ -14,17 +14,31 @@ import pytest
 import torch
 
 import deltarice_tpu_torch as dt
+from deltarice_tpu_torch import codec
 from deltarice_tpu_torch.models import get_profile
 from deltarice_tpu_torch.native import native_compress
 from deltarice_tpu_torch.ops import _kernels
 from deltarice_tpu_torch.ops.concentrate_cuda import (
+    DEAD,
+    biased_plane,
     concentrate_packed,
+    concentrate_wide,
+    concentrate_wide16,
     staged_planes,
+)
+from deltarice_tpu_torch.ops.concentrate_tiled_cuda import (
+    concentrate_tiled,
+    concentrate_tiled_vd,
+    decode_staging,
+    tile,
+    untile,
 )
 from deltarice_tpu_torch.ops.pack_cuda import pack_encode
 from deltarice_tpu_torch.ops.rice import codeword_lengths_values, zigzag
 from deltarice_tpu_torch.ops.prefilter import prefilter_encode
 from deltarice_tpu_torch.ops.transpose_cuda import transpose2d
+from deltarice_tpu_torch.ops.split_decode import _local_width
+from deltarice_tpu_torch.ops.split_decode_cuda import split_decode
 from deltarice_tpu_torch.ops.unpack_cuda import unpack_decode
 
 pytestmark = pytest.mark.cuda
@@ -179,3 +193,182 @@ def test_batch_matches_native_and_counts_launches(cuda):
         assert np.array_equal(b, c.ravel())
     assert counts["pack_encode"] >= 1 and counts["unpack_decode"] >= 1
     assert counts["transpose2d"] >= 4
+
+
+def _planes(rows, r, density, seed, dtype=np.int16):
+    """Random monotone conflict-free (values, disp) planes and n_out."""
+    rng = np.random.default_rng(seed)
+    valid = rng.random((rows, r)) < density
+    dest = np.cumsum(valid, axis=1) - 1
+    disp = np.where(valid, np.arange(r)[None, :] - dest, -1).astype(np.int32)
+    vals = rng.integers(-2**31, 2**31, (rows, r)).astype(dtype)
+    return (torch.from_numpy(vals), torch.from_numpy(disp),
+            max(int(valid.sum(axis=1).max()), 1))
+
+
+@pytest.mark.parametrize("rows,r,dtype", [
+    (256, 65536, np.int32),    # the NOPTREX merge's slot axis
+    (24, 70000, np.int16),
+    (8, 300000, np.int32),
+])
+def test_concentrate_wide_matches_plain(cuda, rows, r, dtype):
+    vals, disp, n_out = _planes(rows, r, 0.45, r, dtype)
+    _assert_same(*_both(concentrate_wide, vals, disp, n_out + 5))
+
+
+def test_concentrate_wide_huge_displacement(cuda):
+    r = 300000
+    vals = torch.zeros((8, r), dtype=torch.int32)
+    disp = torch.full((8, r), -1, dtype=torch.int32)
+    vals[:, r - 1] = torch.arange(8) + 7
+    disp[:, r - 1] = r - 1
+    got, want = _both(concentrate_wide, vals, disp, 4)
+    _assert_same(got, want)
+    assert torch.equal(want[:, 0], torch.arange(8, dtype=torch.int32) + 7)
+
+
+@pytest.mark.parametrize("rows,r,density", [(64, 4 * 23040, 0.9),
+                                            (16, 565248, 0.95),
+                                            (24, 49152, 0.5)])
+def test_concentrate_wide16_matches_plain(cuda, rows, r, density):
+    vals, disp, n_out = _planes(rows, r, density, r)
+    assert int(disp.max()) < (1 << 16)
+    plane = torch.where(disp >= 0, biased_plane(disp.clamp(min=0),
+                                                vals.to(torch.int32) & 0xFFFF),
+                        DEAD)
+    _assert_same(*_both(concentrate_wide16, plane, n_out))
+
+
+def test_concentrate_wide16_dead_collision(cuda):
+    plane = torch.full((8, 40000), DEAD, dtype=torch.int32)
+    plane[:, 0] = DEAD  # a live 0 at displacement 0
+    plane[:, 5] = biased_plane(torch.tensor(4), torch.tensor(1234))
+    got, want = _both(concentrate_wide16, plane, 4)
+    _assert_same(got, want)
+    assert want[:, 0].eq(0).all() and want[:, 1].eq(1234).all()
+
+
+@pytest.mark.parametrize("k,delta,parts", [(3, True, 8), (4, True, 4),
+                                           (3, False, 8), (1, True, 8)])
+def test_split_decode_matches_plain(cuda, k, delta, parts):
+    length = 16000
+    x = np.concatenate([get_profile("noptrex").synthetic(7, seed=k,
+                                                         length=length),
+                        _escape_heavy(1, length)])
+    xt = torch.from_numpy(np.ascontiguousarray(x.T))
+    nv = torch.full((8,), length, dtype=torch.int32)
+    cap = dt.RiceConfig(1 << k).max_words(length) + 1
+    words_t, nwords, _ = pack_encode(xt, nv, None, k, True, cap)
+    counts = nwords.to(torch.int64)
+    wsub = -(-int(counts.max()) // parts)
+    wv = (counts[:, None] - torch.arange(parts) * wsub).clamp(0, wsub)
+    got, want = _both(split_decode, words_t, wv.reshape(-1).to(torch.int32),
+                      parts, wsub, 24, _local_width(length, parts), k, delta)
+    _assert_same(got, want)
+
+
+def _long_chunk(name):
+    prof = get_profile(name)
+    return prof.synthetic(32, seed=0), prof.config
+
+
+@pytest.mark.parametrize("name,merge", [("nedm", "concentrate_packed"),
+                                        ("noptrex", "concentrate_wide")])
+def test_long_chunk_round_trip_matches_native(cuda, name, merge, monkeypatch):
+    chunk, cfg = _long_chunk(name)
+    cd = cfg.to_cd_values()
+    _kernels.reset_launches()
+    stream = dt.compress_batch([chunk], cfg, device="cuda")[0]
+    assert stream == native_compress(chunk, cd)
+    assert _kernels.launches[merge] == 1
+    assert _kernels.launches["pack_encode"] == 1
+    monkeypatch.delenv("DELTARICE_TPU_SPLIT_DECODE", raising=False)
+    assert np.array_equal(dt.decompress(stream, cfg, device="cuda"),
+                          chunk.ravel())
+    monkeypatch.setenv("DELTARICE_TPU_SPLIT_DECODE", "1")
+    _kernels.reset_launches()
+    # one chunk is below the router's lane target: decode 8 copies
+    back = dt.decompress_batch([stream] * 8, cfg, device="cuda")
+    assert all(np.array_equal(b, chunk.ravel()) for b in back)
+    assert _kernels.launches["split_decode"] == 1
+    assert _kernels.launches["concentrate_wide16"] == 1
+
+
+def _tiled_planes(nseg, r, density, sb, seed, bias=False):
+    """Tiled (lead, follow, values, disp) planes of random monotone
+    conflict-free rows, and n_out."""
+    vals, disp, n_out = _planes(nseg, r, density, seed, np.int32)
+    hi = (vals.to(torch.int64) >> 16) & 0xFFFF
+    if bias:
+        lead = torch.where(disp >= 0, biased_plane(disp.clamp(min=0), hi),
+                           DEAD)
+    else:
+        lead = torch.where(disp >= 0, (disp << 16) | hi.to(torch.int32), DEAD)
+    follow = (((vals.to(torch.int64) & 0xFFFF) ^ 0x8000) - 0x8000).to(
+        torch.int16)
+    return (tile(lead, sb, DEAD), tile(follow, sb, 0),
+            tile(follow, sb, 0), tile(disp, sb, -1), n_out)
+
+
+@pytest.mark.parametrize("nseg,r,density,sb,emit,bias", [
+    (1024, 5000, 0.7, 8, "int16", False),
+    (300, 20000, 0.9, 2, "u32", False),
+    (128, 90000, 0.8, 1, "int16", True),    # nEDM-like biased staging
+    (256, 60000, 0.5, 2, "u32", True),
+])
+def test_concentrate_tiled_matches_plain(cuda, nseg, r, density, sb, emit,
+                                         bias):
+    lead, follow, _v, _d, n_out = _tiled_planes(nseg, r, density, sb, r,
+                                                bias)
+    planes = (lead,) if bias or emit == "int16" else (lead, follow)
+    got, want = _both(lambda *p: concentrate_tiled(p, n_out + 3, sb, emit,
+                                                   bias), *planes)
+    _assert_same(got, want)
+
+
+def test_concentrate_tiled_bias_dead_collision(cuda):
+    plane = torch.full((128, 3000), DEAD, dtype=torch.int32)
+    plane[:, 5] = biased_plane(torch.tensor(4), torch.tensor(1234))
+    got, want = _both(lambda p: concentrate_tiled((p,), 4, 1, bias=True),
+                      tile(plane, 1, DEAD))
+    _assert_same(got, want)
+    back = untile(want, 128, 1)
+    assert back[:, 0].eq(0).all() and back[:, 1].eq(1234).all()
+
+
+@pytest.mark.parametrize("nseg,r,density,sb", [
+    (128, 520192, 0.95, 1),   # the NOPTREX decode staging's slot axis
+    (2048, 1200, 0.4, 8),
+    (256, 6000, 0.4, 2),
+])
+def test_concentrate_tiled_vd_matches_plain(cuda, nseg, r, density, sb):
+    _l, _f, values, disp, n_out = _tiled_planes(nseg, r, density, sb, r)
+    _assert_same(*_both(concentrate_tiled_vd, values, disp, n_out, sb))
+
+
+@pytest.mark.parametrize("mode", ["packed", "bias", "vd"])
+def test_decode_staging_concentrates_to_the_samples(cuda, mode):
+    k, length, nseg, sb = 4, 20000, 64, 1
+    x = torch.from_numpy(get_profile("nedm").synthetic(nseg, seed=1,
+                                                       length=length))
+    j = 7  # codeword starts per word at k = 4
+    wc = 512 if mode == "vd" else 1024
+    w = int(_streams(x.numpy(), k, dt.RiceConfig(1 << k).max_words(length)
+                     + 1).shape[0])
+    planes = decode_staging(x.cuda(), k, w, j, wc, sb, mode)
+    if mode == "vd":
+        got, want = _both(lambda *p: concentrate_tiled_vd(*p, length, sb),
+                          *planes)
+    else:
+        got, want = _both(lambda p: concentrate_tiled(
+            (p,), length, sb, bias=mode == "bias"), *planes)
+    _assert_same(got, want)
+    assert torch.equal(untile(want, nseg, sb)[:, :length], x)
+
+
+def test_split_encode_on_the_card_never_merges_on_the_host(cuda,
+                                                          monkeypatch):
+    chunk, cfg = _long_chunk("nedm")
+    monkeypatch.setattr(codec, "merge_substreams_device", lambda *a: None)
+    with pytest.raises(RuntimeError, match="middle sub-stream"):
+        dt.compress_batch([chunk], cfg, device="cuda")
