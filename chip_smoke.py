@@ -29,7 +29,20 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    kernel emits for the same decode buckets, which must concentrate back
    into the decoded samples (the port's own decode makes no staging, so its
    path launches neither);
-7. prints a JSON line of the kernels, then the JSON ``ok`` line last.
+7. drives the HDF5 entry point on an in-memory direct-chunk store
+   (:class:`MemGroup`; the card's machine has no h5py): ``h5.write_dataset``
+   and ``h5.read_dataset`` of Nab 2000 x 7000 in (32, 7000) chunks (the
+   last an edge chunk), nEDM 1024 x 81920 and NOPTREX 256 x 500000 in
+   (32, L) chunks, in 4 windows each, on the data of phases 4-5; every
+   stored blob must equal native ``dr_compress`` of its zero-padded chunk,
+   and the read must give back the input with the split switch off and on;
+8. checks the one-window-deep pipeline: collect of a Nab encode window
+   must return while the decode of a later NOPTREX bucket (B2, about
+   125 ms) is still running on the card;
+9. runs ``optimize`` over the whole Nab dataset on the card (and on its
+   first 64 rows against ``device="cpu"``), then the CLI's ``warmup`` and
+   ``install-plugin`` as subprocesses;
+10. prints a JSON line of the kernels, then the JSON ``ok`` line last.
 
 Each phase prints its seconds. Any failed phase exits nonzero before the
 ``ok`` line. Without a CUDA card, or outside a checkout of the repository,
@@ -43,6 +56,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -54,6 +68,9 @@ GOLDEN = ROOT / "tests" / "data" / "golden"
 ROWS, LENGTH, CHUNK_ROWS = 2048, 7000, 32
 LONG = {"nedm": 1024, "noptrex": 256}  # waveforms of each long profile
 B9_PLAIN_SEGMENTS = 64  # segments B9's plain loop decodes on the card
+# the HDF5 phase: rows of each dataset and chunks per window (4 windows)
+H5_ROWS = {"nab": 2000, "nedm": 1024, "noptrex": 256}
+H5_WINDOW = {"nab": 16, "nedm": 8, "noptrex": 2}
 SPLIT_ENV = "DELTARICE_TPU_SPLIT_DECODE"
 # B7 and B8 compact TPU decode staging, which the port's decode never makes
 STAGING_KERNELS = ("concentrate_tiled", "concentrate_tiled_vd")
@@ -284,21 +301,27 @@ def phase_main_path(x_np) -> dict:
 
 @contextlib.contextmanager
 def captured(targets):
-    """Record the arguments of every call to each ``(module, name)`` made
-    inside the block, and pass the call through."""
+    """Record the positional arguments and the host milliseconds of every
+    call to each ``(module, name)`` made inside the block, and pass the
+    call through: yields ({name: [args, ...]}, {name: [ms, ...]})."""
     calls = {name: [] for _, name in targets}
+    ms = {name: [] for _, name in targets}
     saved = []
     for mod, name in targets:
         orig = getattr(mod, name)
 
-        def spy(*args, _orig=orig, _name=name):
+        def spy(*args, _orig=orig, _name=name, **kw):
             calls[_name].append(args)
-            return _orig(*args)
+            t0 = time.perf_counter()
+            try:
+                return _orig(*args, **kw)
+            finally:
+                ms[_name].append((time.perf_counter() - t0) * 1e3)
 
         saved.append((mod, name, orig))
         setattr(mod, name, spy)
     try:
-        yield calls
+        yield calls, ms
     finally:
         for mod, name, orig in saved:
             setattr(mod, name, orig)
@@ -329,7 +352,7 @@ def phase_long(name: str, x_np) -> tuple[dict, dict]:
                    (sd, "concentrate_wide16"),
                    (sd, "split_decode"),
                    (codec, "unpack_decode"),
-                   (codec, "unpack_decode_split")]) as calls:
+                   (codec, "unpack_decode_split")]) as (calls, _ms):
         streams = dt.compress_batch(chunks, cfg, device="cuda")
         dt.decompress_batch(streams, cfg, device="cuda")
         split_switch(True)
@@ -347,10 +370,11 @@ def phase_long(name: str, x_np) -> tuple[dict, dict]:
     split_switch(True)
     _kernels.reset_launches()
     handle = codec.decompress_batch_dispatch(streams, cfg, "cuda")
-    flagged = sum(int(bad.sum()) for _i, _d, bad, _w in handle[3]
-                  if bad is not None)
     back_on = codec.decompress_batch_collect(handle)
     torch.cuda.synchronize()
+    # the flags sit in pinned memory, complete once collect has returned
+    flagged = sum(int(bad.sum()) for _i, _d, bad, _w in handle[3]
+                  if bad is not None)
     windows["decode(on)"] = dict(_kernels.launches)
     split_switch(False)
     cd = cfg.to_cd_values()
@@ -392,7 +416,7 @@ def phase_long(name: str, x_np) -> tuple[dict, dict]:
           f"off {dec_off:.3f} ms = {raw / dec_off / 1e6:.4f} GB/s, on "
           f"{dec_on:.3f} ms = {raw / dec_on / 1e6:.4f} GB/s; "
           f"{time.perf_counter() - t0:.1f} s")
-    return windows, calls
+    return windows, calls, streams
 
 
 def phase_long_kernels(calls_by_path: dict) -> list[dict]:
@@ -527,6 +551,261 @@ def phase_long_kernels(calls_by_path: dict) -> list[dict]:
              "replaces": src[k][1], **v} for k, v in rows.items()]
 
 
+class MemPlist:
+    """The dataset creation property list's filter pipeline."""
+
+    def __init__(self, filters):
+        self._filters = filters
+
+    def get_nfilters(self) -> int:
+        return len(self._filters)
+
+    def get_filter(self, i):
+        return self._filters[i]
+
+
+class MemDatasetID:
+    """Direct-chunk I/O of one dataset: stored blobs by chunk offset."""
+
+    def __init__(self, filters):
+        self.chunks: dict[tuple, tuple[int, bytes]] = {}
+        self._plist = MemPlist(filters)
+
+    def write_direct_chunk(self, offset, data, filter_mask=0) -> None:
+        self.chunks[tuple(offset)] = (filter_mask, bytes(data))
+
+    def read_direct_chunk(self, offset):
+        return self.chunks[tuple(offset)]
+
+    def get_create_plist(self) -> MemPlist:
+        return self._plist
+
+
+class MemDataset:
+    def __init__(self, name, shape, dtype, chunks, filters):
+        self.name = name
+        self.shape = tuple(shape)
+        self.dtype = np.dtype(dtype)
+        self.chunks = tuple(chunks)
+        self.id = MemDatasetID(filters)
+
+
+class MemGroup:
+    """An in-memory stand-in for an h5py group, with the direct-chunk
+    surface the port's ``h5`` module uses: ``create_dataset`` keeps the
+    filter id and the cd_values it is given."""
+
+    def __init__(self):
+        self.datasets: dict[str, MemDataset] = {}
+
+    def create_dataset(self, name, shape, dtype, chunks, compression,
+                       compression_opts, allow_unknown_filter=False):
+        filters = [(compression, 0, tuple(compression_opts), b"deltarice")]
+        dset = MemDataset(name, shape, dtype, chunks, filters)
+        self.datasets[name] = dset
+        return dset
+
+    def __getitem__(self, name) -> MemDataset:
+        return self.datasets[name]
+
+
+def phase_h5(name: str, x_np) -> dict:
+    """Write and read one profile's dataset through ``h5`` on the in-memory
+    store, in 4 windows; returns the launches of each counted run."""
+    from deltarice_tpu_torch import h5, native
+    from deltarice_tpu_torch.models import get_profile
+    from deltarice_tpu_torch.ops import _kernels
+
+    cfg = get_profile(name).config
+    x = x_np[: H5_ROWS[name]]
+    chunks = (CHUNK_ROWS, x.shape[1])
+    batch = H5_WINDOW[name]
+    store = MemGroup()
+    runs = {}
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    dset = h5.write_dataset(store, name, x, cfg, chunks, batch_chunks=batch,
+                            device="cuda")
+    t_write = time.perf_counter() - t0
+    runs["write"] = dict(_kernels.launches)
+    nchunks = len(dset.id.chunks)
+    windows = -(-nchunks // batch)
+    check(windows >= 4, f"{name}: {windows} h5 windows, want at least 4")
+    cd = cfg.to_cd_values()
+    comp = 0
+    for off, (mask, blob) in dset.id.chunks.items():
+        full = np.zeros(chunks, np.int16)
+        part = x[off[0]: off[0] + CHUNK_ROWS]
+        full[: part.shape[0]] = part
+        check(mask == 0 and blob == native.native_compress(full, cd),
+              f"{name} h5 chunk {off}: blob differs from native dr_compress")
+        comp += len(blob)
+    reads = {}
+    for on in (False, True):
+        split_switch(on)
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        back = h5.read_dataset(store[name], batch_chunks=batch,
+                               device="cuda")
+        reads[on] = time.perf_counter() - t0
+        runs[f"read(split {'on' if on else 'off'})"] = dict(_kernels.launches)
+        check(np.array_equal(back, x),
+              f"{name} h5 read (split {'on' if on else 'off'}) differs")
+    split_switch(False)
+    for kernel in ("pack_encode", "transpose2d"):
+        check(runs["write"].get(kernel, 0) > 0,
+              f"{name} h5 write never launched {kernel}")
+    h5_breakdown(name, store, x, cfg, chunks, batch)
+    check(runs["read(split off)"].get("unpack_decode", 0) > 0,
+          f"{name} h5 read never launched unpack_decode")
+    raw = x.nbytes
+    print(f"[7 h5 {name}] {x.shape} in {nchunks} chunks of {chunks}, "
+          f"{windows} windows of {batch}: every blob equals native "
+          f"dr_compress, read exact with the split switch off and on; ratio "
+          f"{comp / raw:.6f}; write {t_write * 1e3:.1f} ms = "
+          f"{raw / t_write / 1e9:.4f} GB/s, read off {reads[False] * 1e3:.1f}"
+          f" ms = {raw / reads[False] / 1e9:.4f} GB/s, on "
+          f"{reads[True] * 1e3:.1f} ms = {raw / reads[True] / 1e9:.4f} GB/s;"
+          f" launches {json.dumps(runs, sort_keys=True)}")
+    return runs
+
+
+def h5_breakdown(name, store, x, cfg, chunks, batch) -> None:
+    """Where an h5 write and read (split switch off) spend their time: the
+    host milliseconds of each window's dispatch and collect, then one
+    ``torch.profiler`` repeat for the device's busy share of the wall
+    (kernel and memcpy rows; the profiler's own cost is in that wall)."""
+    from deltarice_tpu_torch import codec, h5
+    from deltarice_tpu_torch.profile_long import _device_rows
+    from deltarice_tpu_torch.utils.profiling import device_trace
+
+    runs = {
+        "write": (("compress_batch_dispatch", "compress_batch_collect"),
+                  lambda: h5.write_dataset(store, f"{name}-b", x, cfg, chunks,
+                                           batch_chunks=batch,
+                                           device="cuda")),
+        "read": (("decompress_batch_dispatch", "decompress_batch_collect"),
+                 lambda: h5.read_dataset(store[name], batch_chunks=batch,
+                                         device="cuda")),
+    }
+    for label, (fns, fn) in runs.items():
+        torch.cuda.synchronize()
+        with captured([(codec, f) for f in fns]) as (_calls, ms):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        with tempfile.TemporaryDirectory() as tmp:
+            with device_trace(tmp) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                pwall = (time.perf_counter() - t0) * 1e3
+        rows = _device_rows(prof)
+        busy = sum(r[0] for r in rows)
+        d, c = (ms[f] for f in fns)
+        top = "; ".join(f"{k[:40]} {v:.2f} ms x {n}" for v, n, k in rows[:4])
+        print(f"[7 h5 {name}] {label} breakdown: wall {wall:.1f} ms; host "
+              f"dispatch {' '.join(f'{v:.1f}' for v in d)} ms, collect "
+              f"{' '.join(f'{v:.1f}' for v in c)} ms, the rest "
+              f"{wall - sum(d) - sum(c):.1f} ms; profiled repeat: wall "
+              f"{pwall:.1f} ms, device busy {busy:.2f} ms "
+              f"({100 * busy / pwall:.1f} %): {top}")
+
+
+def phase_overlap(nab_np, noptrex_streams) -> None:
+    """Collect of window i-1 must not wait for window i's kernels: dispatch
+    a Nab encode window, then a NOPTREX decode bucket (B2, split switch
+    off), then collect the Nab window while that bucket still runs."""
+    from deltarice_tpu_torch import codec, native
+    from deltarice_tpu_torch.models import get_profile
+
+    nab_cfg = get_profile("nab").config
+    opt_cfg = get_profile("noptrex").config
+    chunks = list(nab_np[: 16 * CHUNK_ROWS].reshape(16, CHUNK_ROWS, -1))
+    blobs = noptrex_streams[:2]
+    split_switch(False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = codec.compress_batch_dispatch(chunks, nab_cfg, "cuda")
+    dec = codec.decompress_batch_dispatch(blobs, opt_cfg, "cuda")
+    t1 = time.perf_counter()
+    streams = codec.compress_batch_collect(enc, nab_cfg)
+    t2 = time.perf_counter()
+    later_running = not dec[2][3].query()
+    t3 = time.perf_counter()
+    back = codec.decompress_batch_collect(dec)
+    t4 = time.perf_counter()
+    print(f"[8 overlap] dispatch Nab encode window (16 chunks) + NOPTREX "
+          f"decode bucket (2 chunks) {(t1 - t0) * 1e3:.1f} ms; Nab collect "
+          f"took {(t2 - t1) * 1e3:.1f} ms and returned with the NOPTREX "
+          f"bucket {'still running' if later_running else 'already done'}; "
+          f"NOPTREX collect waited {(t4 - t3) * 1e3:.1f} ms more")
+    check(later_running, "collect of the Nab window waited for the later "
+          "NOPTREX decode's kernels")
+    cd = nab_cfg.to_cd_values()
+    for c, s in zip(chunks, streams):
+        check(s == native.native_compress(c, cd),
+              "overlap: Nab stream differs from native dr_compress")
+    for b, s in zip(back, blobs):
+        check(np.array_equal(b, native.native_decompress(
+            s, opt_cfg.to_cd_values())), "overlap: NOPTREX decode differs")
+
+
+def phase_tools(nab_np) -> None:
+    import deltarice_tpu_torch as dt
+    from deltarice_tpu_torch import optimize as opt
+    from deltarice_tpu_torch.native import LIB
+
+    x = nab_np[: H5_ROWS["nab"]]
+    for n_taps in (2, 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cfg = opt.optimize(x, n_taps=n_taps, device="cuda")
+        torch.cuda.synchronize()
+        t_opt = time.perf_counter() - t0
+        bits = opt.expected_bits(x, cfg.m, cfg.filt, device="cuda")
+        full = dt.RiceConfig(cfg.m, x.shape[1], cfg.filt)
+        # 125 chunks of 16 rows: the whole dataset, no zero padding
+        streams = dt.compress_batch(list(x.reshape(-1, 16, x.shape[1])),
+                                    full, device="cuda")
+        measured = sum(len(s) for s in streams) * 8 / x.size
+        small_gpu = opt.optimize(x[:64], n_taps=n_taps, device="cuda")
+        small_cpu = opt.optimize(x[:64], n_taps=n_taps, device="cpu")
+        check(small_gpu == small_cpu,
+              f"optimize n_taps={n_taps}: {small_gpu} on the card, "
+              f"{small_cpu} on the CPU")
+        b_gpu = opt.expected_bits(x[:64], small_gpu.m, small_gpu.filt,
+                                  device="cuda")
+        b_cpu = opt.expected_bits(x[:64], small_cpu.m, small_cpu.filt,
+                                  device="cpu")
+        check(abs(b_gpu - b_cpu) <= 1e-6 * b_cpu,
+              f"optimize n_taps={n_taps}: bits {b_gpu} vs {b_cpu}")
+        print(f"[9 tools] optimize n_taps={n_taps} over {x.shape}: "
+              f"{t_opt * 1e3:.1f} ms, M={cfg.m} filter={list(cfg.filt)}, "
+              f"predicted {bits:.6f} bits/sample, the port's stream "
+              f"{measured:.6f} bits/sample; 64 rows: "
+              f"card == CPU ({small_cpu.m}, {list(small_cpu.filt)}, "
+              f"{b_gpu:.9f} bits)")
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    with tempfile.TemporaryDirectory() as tmp:
+        for argv in (["warmup", "--device", "cuda"],
+                     ["install-plugin", "--dir", tmp]):
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "deltarice_tpu_torch", *argv],
+                capture_output=True, text=True, timeout=300, cwd=tmp, env=env)
+            check(res.returncode == 0, f"CLI {argv[0]} exited "
+                  f"{res.returncode}: {res.stderr.strip()[-500:]}")
+            print(f"[9 tools] CLI {' '.join(argv[:1])}: exit 0 in "
+                  f"{time.perf_counter() - t0:.1f} s: "
+                  f"{(res.stdout + res.stderr).strip().splitlines()[-1]}")
+        check((Path(tmp) / LIB.name).is_file(),
+              "install-plugin left no plugin file")
+
+
 def run() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this run needs one", file=sys.stderr)
@@ -548,17 +827,28 @@ def run() -> int:
         phase_golden()
         counted = {"nab": {"encode+decode": phase_main_path(x_np)}}
         print(f"[1-4] {time.perf_counter() - t:.1f} s")
-        calls = {}
+        calls, data, streams = {}, {"nab": x_np}, {}
         for name, n in LONG.items():
             t = time.perf_counter()
-            x_long = get_profile(name).synthetic(n, seed=0)
+            data[name] = get_profile(name).synthetic(n, seed=0)
             print(f"[5 long {name}] set-up: {n} synthetic waveforms in "
                   f"{time.perf_counter() - t:.1f} s")
-            counted[name], calls[name] = phase_long(name, x_long)
-            del x_long
+            counted[name], calls[name], streams[name] = phase_long(
+                name, data[name])
         t = time.perf_counter()
         long_rows = phase_long_kernels(calls)
         print(f"[6 long kernels] {time.perf_counter() - t:.1f} s")
+        del calls
+        for name in H5_ROWS:
+            t = time.perf_counter()
+            counted[f"{name} h5"] = phase_h5(name, data[name])
+            print(f"[7 h5 {name}] {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_overlap(x_np, streams["noptrex"])
+        print(f"[8 overlap] {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_tools(x_np)
+        print(f"[9 tools] {time.perf_counter() - t:.1f} s")
         check("jax" not in sys.modules and "deltarice_tpu" not in sys.modules,
               "the port imported JAX or the JAX package")
     except SmokeFailure as e:

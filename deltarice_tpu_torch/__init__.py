@@ -6,9 +6,13 @@ reference: the same streams byte for byte, the same config schema. It
 imports torch, numpy and ctypes only. Every entry point takes ``device``
 (default ``"cuda"``); ``device="cpu"`` runs the kernels' plain torch
 versions. The CUDA kernels build with ``nvcc`` at their first launch.
+HDF5 files are written and read through :mod:`.h5` (direct-chunk I/O, no
+h5py import at package import), and ``python -m deltarice_tpu_torch`` is
+the command line (:mod:`.cli`).
 """
 
 from .config import H5FILTER, RiceConfig, rice_k
+from .utils.warmup import warmup
 from .codec import (
     compress,
     compress_batch,
@@ -30,4 +34,5 @@ __all__ = [
     "decompress_batch",
     "encode_segments",
     "decode_segments",
+    "warmup",
 ]

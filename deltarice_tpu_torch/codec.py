@@ -22,14 +22,23 @@ Split of responsibilities:
   stream speculatively (B9 + B6, ``DELTARICE_TPU_SPLIT_DECODE=1``).
 * host (numpy + the native C helpers): the variable-length framing — the
   header walk and the ragged gather / scatter at memcpy speed.
+* windows: ``*_dispatch`` queues a batch's copies in (from pinned staging),
+  its kernels and the copies of its results into pinned host memory on the
+  current stream without waiting, and records a CUDA event; ``*_collect``
+  waits on that event only, so it never waits for a later window's kernels
+  (the h5 layer's one-window-deep pipeline). What collect must still run on
+  the card (the split merge, over-cap re-encodes, re-decodes of flagged
+  segments, verification) runs on a second stream.
 
 Every entry point takes ``device``; a ``"cpu"`` device runs the kernels'
-plain torch versions. Words are int32 tensors holding uint32 bit patterns
-on the device and uint32 arrays on the host.
+plain torch versions, with no pinning and no events. Words are int32
+tensors holding uint32 bit patterns on the device and uint32 arrays on the
+host.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -172,11 +181,61 @@ def _decode_dispatch(words, n_samples: int, cfg: RiceConfig, device,
 
 
 def _on(a, device, dtype) -> torch.Tensor:
-    """Array or tensor -> contiguous ``dtype`` tensor on ``device`` (a
-    read-only array is copied first: torch cannot share it)."""
+    """Array or tensor -> contiguous ``dtype`` tensor on ``device``.
+
+    A host array bound for a CUDA device is staged in pinned memory and
+    copied without blocking the host, in the current stream's order (a
+    pageable copy would wait for every kernel queued before it). A
+    read-only array is copied first for a CPU device: torch cannot share
+    it."""
+    if _is_cuda(device) and not isinstance(a, torch.Tensor):
+        a = np.asarray(a)
+        pin = torch.empty(a.shape, dtype=dtype, pin_memory=True)
+        np.copyto(pin.numpy(), a, casting="unsafe")
+        a = pin
     if isinstance(a, np.ndarray) and not a.flags.writeable:
         a = a.copy()
-    return torch.as_tensor(a).to(device=device, dtype=dtype).contiguous()
+    return torch.as_tensor(a).to(device=device, dtype=dtype,
+                                  non_blocking=True).contiguous()
+
+
+def _is_cuda(device) -> bool:
+    return torch.device(device).type == "cuda"
+
+
+def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    """Queue the copy of a device tensor into new pinned host memory behind
+    the current stream's work, without waiting: read it only after the
+    window's event. The caching host allocator does not hand the block out
+    again before the copy has completed."""
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return out.copy_(t, non_blocking=True)
+
+
+def _window_ready(device) -> "torch.cuda.Event | None":
+    """Event behind everything a window queued on the current stream (its
+    kernels and its copies into pinned memory); None on a CPU device."""
+    if not _is_cuda(device):
+        return None
+    ev = torch.cuda.Event()
+    ev.record()
+    return ev
+
+
+_collect_streams: dict[int, "torch.cuda.Stream"] = {}
+
+
+def _collect_stream(device):
+    """Context for the device work a collect runs itself: a second stream
+    of the card, so it runs beside a later window's kernels on the current
+    stream instead of behind them. A no-op on a CPU device."""
+    if not _is_cuda(device):
+        return contextlib.nullcontext()
+    dev = torch.device(device)
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    if idx not in _collect_streams:
+        _collect_streams[idx] = torch.cuda.Stream(idx)
+    return torch.cuda.stream(_collect_streams[idx])
 
 
 def _segment_layout(total: int, cfg: RiceConfig):
@@ -493,35 +552,45 @@ def compress_batch_dispatch(chunks, cfg: RiceConfig = RiceConfig(),
                             device="cuda"):
     """Queue the device encode of a chunk batch and return a handle.
 
-    The handle holds device tensors; :func:`compress_batch_collect` moves
-    them to the host and frames the streams, so a caller can overlap one
-    window's framing and file I/O with the next window's encode.
+    On a CUDA device the words (or, for a split encode, the sub-stream
+    bit counts the merge needs) are copied into pinned host memory behind
+    the kernels and the handle holds an event recorded after them;
+    :func:`compress_batch_collect` waits on that event only, then frames
+    the streams, so a caller can overlap one window's framing and file I/O
+    with the next window's encode.
     ``collect(dispatch(x)) == compress_batch(x)`` byte for byte.
     """
     arrs = [as_int16(c).ravel() for c in chunks]
     if not arrs:
-        return (arrs, 0, None, None, device, None, 1)
+        return (arrs, 0, None, None, device, None, 1, None)
     total = arrs[0].size
     if any(a.size != total for a in arrs):
         raise ValueError("compress_batch requires equal-sized chunks")
     if total == 0:  # header-only streams, matching the native C codec
-        return (arrs, 0, None, None, device, None, 1)
+        return (arrs, 0, None, None, device, None, 1, None)
     x2, nv, length = _padded_rows(arrs, total, cfg)
     parts = _split_parts(_segment_layout(total, cfg)[0], length, cfg)
     if parts > 1:  # long segments: sub-block split, merged in collect
         words, nwords, nbits, _ls = _encode_split_rows(x2, nv, cfg, parts,
                                                        device)
-        return (arrs, total, words, nwords, device, nbits, parts)
+        if _is_cuda(device):  # the merge needs host bit counts; words stay
+            nwords, nbits = _pinned_copy(nwords), _pinned_copy(nbits)
+        return (arrs, total, words, nwords, device, nbits, parts,
+                _window_ready(device))
     cap = _words_hint(x2, cfg, length)
     words, nwords = encode_segments(x2, nv, cfg, cap, device)
-    return (arrs, total, words, nwords, device, None, 1)
+    if _is_cuda(device):  # the whole capped width: max(nwords) is unknown
+        words, nwords = _pinned_copy(words), _pinned_copy(nwords)
+    return (arrs, total, words, nwords, device, None, 1,
+            _window_ready(device))
 
 
 def _padded_rows(arrs, total: int, cfg: RiceConfig):
     """Chunks -> (rows (nchunks*nseg, L) int16 zero-padded, nvalid, L)."""
     nseg, length, nvalid = _segment_layout(total, cfg)
-    padded = np.zeros((len(arrs), nseg, length), dtype=np.int16)
-    padded.reshape(len(arrs), -1)[:, :total] = np.stack(arrs)
+    padded = np.zeros((len(arrs), nseg * length), dtype=np.int16)
+    for row, a in zip(padded, arrs):
+        row[:total] = a
     return (padded.reshape(len(arrs) * nseg, length),
             np.tile(nvalid, len(arrs)), length)
 
@@ -531,16 +600,27 @@ def compress_batch_collect(handle, cfg: RiceConfig = RiceConfig(),
                            retries: int = 2) -> list[bytes]:
     """Fetch and frame the streams of a :func:`compress_batch_dispatch`.
 
-    Split sub-streams merge on the card when they are there (B3 or B5), and
-    on the host for a CPU device."""
-    arrs, total, words, nwords, device, nbits, parts = handle
+    Waits on the window's event only. Split sub-streams merge on the card
+    when they are there (B3 or B5), and on the host for a CPU device; that
+    merge, over-cap re-encodes and verification run on the collect stream
+    (:func:`_collect_stream`)."""
+    arrs, total, words, nwords, device, nbits, parts, ready = handle
     if not arrs:
         return []
     if total == 0:
         return [np.zeros(1, dtype="<u4").tobytes() for _ in arrs]
+    if ready is not None:
+        ready.synchronize()
+    with _collect_stream(device):
+        return _frame_collected(arrs, total, words, nwords, device, nbits,
+                                parts, cfg, verify, retries)
+
+
+def _frame_collected(arrs, total, words, nwords, device, nbits, parts, cfg,
+                     verify, retries) -> list[bytes]:
     nchunks = len(arrs)
     nseg = _segment_layout(total, cfg)[0]
-    # fetch the word counts first, then move only ~compressed-size bytes
+    # word counts first: a CPU device then reads only ~compressed-size words
     nw = nwords.cpu().numpy()
     w = max(int(nw.max(initial=0)), 1)
     if parts > 1:
@@ -550,6 +630,7 @@ def compress_batch_collect(handle, cfg: RiceConfig = RiceConfig(),
                 _host_words(words[:, :w]).reshape(nchunks * nseg, parts, w),
                 nb2)
         else:
+            words.record_stream(torch.cuda.current_stream())
             res = merge_substreams_device(words, nb2, parts)
             if res is None:
                 # _split_layout makes every sub-block before a segment's
@@ -635,8 +716,10 @@ def decompress_batch(streams, cfg: RiceConfig = RiceConfig(),
 
 def decompress_batch_dispatch(streams, cfg: RiceConfig = RiceConfig(),
                               device="cuda"):
-    """Run the host side (header walk, ragged gather), queue each bucket's
-    device decode and return a handle of device tensors for
+    """Run the host side (header walk, ragged gather into pinned staging on
+    a CUDA device), queue each bucket's device decode and the copy of its
+    samples (and split-decode flags) into pinned host memory, and return a
+    handle with an event recorded after them for
     :func:`decompress_batch_collect`."""
     streams = list(streams)
     if not streams:
@@ -649,6 +732,7 @@ def decompress_batch_dispatch(streams, cfg: RiceConfig = RiceConfig(),
         raise ValueError("decompress_batch requires equal-sized chunks")
     if total == 0:
         return (len(bufs), 0, None, [])
+    cuda = _is_cuda(device)
     nseg, length, nvalid = _segment_layout(total, cfg)
     by_bucket: dict[int, list[int]] = {}
     per_chunk = []
@@ -659,39 +743,50 @@ def decompress_batch_dispatch(streams, cfg: RiceConfig = RiceConfig(),
         by_bucket.setdefault(bucket * _WORD_BUCKET, []).append(i)
     pending = []
     for bucket, idxs in by_bucket.items():
-        words = np.zeros((len(idxs), nseg, bucket), dtype=np.uint32)
+        shape = (len(idxs) * nseg, bucket)
+        staged = (torch.zeros(shape, dtype=torch.int32, pin_memory=True)
+                  if cuda else None)
+        words2 = (np.zeros(shape, dtype=np.uint32) if staged is None
+                  else staged.numpy().view(np.uint32))
         for j, i in enumerate(idxs):
             buf, counts, starts = per_chunk[i]
-            words[j] = gather_segments(buf, counts, starts, bucket)
-        words2 = words.reshape(-1, bucket)
-        # the split decode's flags stay on the device until collect, so
-        # this dispatch never waits for the card
+            gather_segments(buf, counts, starts, bucket,
+                            out=words2[j * nseg : (j + 1) * nseg])
         _w, dec, bad = _decode_dispatch(
-            words2, length, cfg, device,
+            words2 if staged is None else staged, length, cfg, device,
             np.concatenate([per_chunk[i][1] for i in idxs]),
             np.tile(nvalid, len(idxs)))
+        if cuda:  # samples and flags land in pinned memory behind the kernels
+            dec = _pinned_copy(dec)
+            bad = None if bad is None else _pinned_copy(bad)
         pending.append((idxs, dec, bad, words2))
-    return (len(bufs), total, (length, cfg, device), pending)
+    return (len(bufs), total, (length, cfg, device, _window_ready(device)),
+            pending)
 
 
 def decompress_batch_collect(handle) -> list[np.ndarray]:
-    """Fetch the samples of a :func:`decompress_batch_dispatch`; segments
-    the split decode flagged re-decode exactly (B2) here."""
+    """Fetch the samples of a :func:`decompress_batch_dispatch`, waiting on
+    its event only; segments the split decode flagged re-decode exactly
+    (B2) here, on the collect stream. Every returned array is a copy: none
+    aliases pinned memory that a later window reuses."""
     n, total, meta, pending = handle
     if n == 0:
         return []
     if total == 0:
         return [np.zeros(0, dtype=np.int16) for _ in range(n)]
-    length, cfg, device = meta
+    length, cfg, device, ready = meta
+    if ready is not None:
+        ready.synchronize()
     out: list[np.ndarray | None] = [None] * n
-    for idxs, dec, bad, words2 in pending:
-        dec_np = dec.cpu().numpy()
-        if bad is not None:
-            dec_np = _redecode_bad_rows(dec_np, bad.cpu().numpy(), words2,
-                                        length, cfg, device)
-        dec_np = dec_np.reshape(len(idxs), -1)
-        for j, i in enumerate(idxs):
-            out[i] = dec_np[j, :total].copy()
+    with _collect_stream(device):
+        for idxs, dec, bad, words2 in pending:
+            dec_np = dec.cpu().numpy()
+            if bad is not None:
+                dec_np = _redecode_bad_rows(dec_np, bad.cpu().numpy(),
+                                            words2, length, cfg, device)
+            dec_np = dec_np.reshape(len(idxs), -1)
+            for j, i in enumerate(idxs):
+                out[i] = dec_np[j, :total].copy()
     return out
 
 
@@ -779,15 +874,23 @@ def walk_headers(buf: np.ndarray, nseg: int):
 
 
 def gather_segments(buf: np.ndarray, counts: np.ndarray, starts: np.ndarray,
-                    bucket: int = _WORD_BUCKET) -> np.ndarray:
+                    bucket: int = _WORD_BUCKET, out=None) -> np.ndarray:
     """Scatter the ragged per-segment words into a padded dense matrix
-    (native C + OpenMP when built, numpy fallback)."""
+    (native C + OpenMP when built, numpy fallback). ``out``: a zeroed
+    C-contiguous (nseg, padded width) uint32 array to fill in place."""
     from .native import codec_lib
 
     nseg = counts.shape[0]
     maxw = int(counts.max(initial=0)) + 1  # +1 pad word for the 64-bit window
     maxw = -(-maxw // bucket) * bucket
-    words = np.zeros((nseg, maxw), dtype=np.uint32)
+    if out is None:
+        words = np.zeros((nseg, maxw), dtype=np.uint32)
+    elif (out.shape != (nseg, maxw) or out.dtype != np.uint32
+          or not out.flags.c_contiguous):
+        raise ValueError(f"out must be a C-contiguous ({nseg}, {maxw}) "
+                         f"uint32 array")
+    else:
+        words = out
     lib = codec_lib()
     if lib is not None:
         buf = np.ascontiguousarray(buf)

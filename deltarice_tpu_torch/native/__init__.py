@@ -1,12 +1,18 @@
-"""ctypes loader for the repository's native C codec (``dr_codec.c``).
+"""ctypes loader for the repository's native C codec and HDF5 filter plugin.
 
 The port reuses the C sources that ship beside the JAX package
 (``deltarice_tpu/native/src/``) by path, without importing that package:
-``dr_codec.c`` includes only ``dr_codec.h`` and compiles alone. It is built
-on first use with the system C compiler into ``deltarice_tpu_torch/build/``
-and gives the codec its host routines (header walk, ragged gather, stream
-framing) and an independent whole-chunk codec (``dr_compress`` /
-``dr_decompress``) to hold the port against.
+``dr_codec.c`` (the codec and its host routines) and ``h5z_deltarice.c``
+(the HDF5 filter class for ID 32025 and the dynamic-plugin entry points).
+Both build on first use, with the system C compiler, into one shared
+library under ``deltarice_tpu_torch/build/native/``. It gives the codec its
+host routines (header walk, ragged gather, stream framing), an independent
+whole-chunk codec (``dr_compress`` / ``dr_decompress``) to hold the port
+against, and the filter plugin that :func:`register_with_h5py` registers
+into h5py's HDF5 and :mod:`.install` copies into a plugin directory.
+
+No HDF5 headers are needed: the filter declares the HDF5 ABI it uses and
+resolves libhdf5 at run time.
 
 Without a C compiler :func:`codec_lib` returns None and the host routines
 take their numpy versions.
@@ -24,8 +30,9 @@ from pathlib import Path
 import numpy as np
 
 _PKG = Path(__file__).resolve().parents[1]
-SRC = _PKG.parent / "deltarice_tpu" / "native" / "src" / "dr_codec.c"
-LIB = _PKG / "build" / "native" / "libdr_codec.so"
+SRC_DIR = _PKG.parent / "deltarice_tpu" / "native" / "src"
+SOURCES = (SRC_DIR / "dr_codec.c", SRC_DIR / "h5z_deltarice.c")
+LIB = _PKG / "build" / "native" / "libh5deltarice_tpu_torch.so"
 
 _P = ctypes.c_void_p
 _SZ = ctypes.c_size_t
@@ -60,8 +67,8 @@ _SIGNATURES = {
 
 
 def build() -> Path:
-    """Compile ``dr_codec.c`` into :data:`LIB` (atomic replace, so
-    a concurrent process never loads a half-written file)."""
+    """Compile :data:`SOURCES` into :data:`LIB` (atomic replace, so a
+    concurrent process never loads a half-written file)."""
     cc = shutil.which("cc") or shutil.which("gcc") or shutil.which("clang")
     if cc is None:
         raise RuntimeError("no C compiler found")
@@ -69,8 +76,12 @@ def build() -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=LIB.parent)
     os.close(fd)
     try:
+        # -z nodelete: HDF5's plugin loader dlcloses filter plugins at
+        # H5close; unmapping the library would also unmap libgomp while its
+        # worker threads are parked in it (the JAX package's _build.py)
         res = subprocess.run(
-            [cc, "-O3", "-fPIC", "-shared", "-fopenmp", str(SRC), "-o", tmp],
+            [cc, "-O3", "-fPIC", "-shared", "-Wall", "-fopenmp",
+             *map(str, SOURCES), "-o", tmp, "-ldl", "-Wl,-z,nodelete"],
             capture_output=True, text=True,
         )
         if res.returncode != 0:
@@ -84,8 +95,7 @@ def build() -> Path:
 
 def _is_built() -> bool:
     return LIB.is_file() and LIB.stat().st_mtime >= max(
-        SRC.stat().st_mtime, SRC.with_suffix(".h").stat().st_mtime
-    )
+        p.stat().st_mtime for p in (*SOURCES, SRC_DIR / "dr_codec.h"))
 
 
 _codec_lib: "ctypes.CDLL | None | bool" = False  # False = not yet tried
@@ -115,7 +125,8 @@ def codec_lib() -> "ctypes.CDLL | None":
 def _require() -> ctypes.CDLL:
     lib = codec_lib()
     if lib is None:
-        raise RuntimeError(f"native codec unavailable (could not build {SRC})")
+        raise RuntimeError(f"native codec unavailable (could not build "
+                           f"{LIB.name} from {SRC_DIR})")
     return lib
 
 
@@ -171,3 +182,48 @@ def native_decompress(stream, cd_values) -> np.ndarray:
                              dtype=np.int16).copy()
     finally:
         _libc.free(ctypes.cast(out, _P))
+
+
+def register_with_h5py() -> bool:
+    """Load the filter plugin and register filter 32025 into h5py's HDF5.
+
+    The plugin resolves ``H5Zregister`` from the libhdf5 that h5py loaded
+    (:func:`_candidate_hdf5_libs`), so no HDF5 development install is
+    needed. Registering again (this package or the JAX package's plugin in
+    the same process) replaces the filter class and succeeds. Returns True
+    on success, False where h5py, the C compiler or libhdf5 is missing.
+    """
+    try:
+        if not _is_built():
+            build()
+        import h5py  # loads libhdf5 into the process
+    except (ImportError, OSError, RuntimeError):
+        return False
+    try:
+        lib = ctypes.CDLL(str(LIB), mode=ctypes.RTLD_GLOBAL)
+        lib.dr_h5_init_from.argtypes = [ctypes.c_char_p]
+        lib.dr_h5_init_from.restype = ctypes.c_int
+        lib.deltarice_tpu_register.argtypes = []
+        lib.deltarice_tpu_register.restype = ctypes.c_int
+        for hdf5 in _candidate_hdf5_libs(h5py):
+            if lib.dr_h5_init_from(hdf5.encode()) == 0:
+                break
+        return lib.deltarice_tpu_register() >= 0
+    except OSError:
+        return False
+
+
+def _candidate_hdf5_libs(h5py) -> list[str]:
+    """Shared libraries that may export the HDF5 API in an h5py install:
+    the wheel-bundled libhdf5 (manylinux ``h5py.libs``) or, for
+    system-linked builds, h5py's own extension modules (which re-export
+    through their DT_NEEDED libhdf5)."""
+    import glob
+
+    root = Path(h5py.__file__).resolve().parent
+    cands: list[str] = []
+    for pat in ("../h5py.libs/libhdf5*.so*", "../h5py.libs/libhdf5*"):
+        cands.extend(sorted(glob.glob(str(root / pat))))
+    cands.extend(sorted(glob.glob(str(root / "defs*.so"))))
+    cands.extend(sorted(glob.glob(str(root / "h5z*.so"))))
+    return cands

@@ -137,10 +137,13 @@ def unpack_decode_split(words_t: torch.Tensor, counts, n_samples: int,
         counts[:, None] - np.arange(parts, dtype=np.int64)[None, :] * wsub,
         0, wsub,
     ).astype(np.int32)
-    wv2_t = torch.from_numpy(wv2).to(dev)
-    local, meta = split_decode(words_t, wv2_t.reshape(-1), parts, wsub, halo,
-                               lw, k, delta)
     nv = (np.full(nseg, n_samples, np.int64) if nvalid is None
           else np.asarray(nvalid, dtype=np.int64))
-    return _compose_merge(local, *meta, wv2_t, torch.from_numpy(nv).to(dev),
-                          n_samples, parts, lw, delta)
+    # both copies in go before the kernel: a pageable copy waits for the
+    # stream, and must not wait for this decode's own kernels
+    wv2_t = torch.from_numpy(wv2).to(dev)
+    nv_t = torch.from_numpy(nv).to(dev)
+    local, meta = split_decode(words_t, wv2_t.reshape(-1), parts, wsub, halo,
+                               lw, k, delta)
+    return _compose_merge(local, *meta, wv2_t, nv_t, n_samples, parts, lw,
+                          delta)

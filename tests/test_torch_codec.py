@@ -192,13 +192,29 @@ def test_bad_cd_values_rejected_like_jax(cd):
 def test_import_loads_neither_jax_nor_the_jax_package():
     probe = (
         "import sys, numpy as np, deltarice_tpu_torch as dt\n"
+        "from deltarice_tpu_torch import cli, h5, optimize, utils\n"
+        "from deltarice_tpu_torch.native import install\n"
         "x = np.arange(300, dtype=np.int16)\n"
         "cfg = dt.RiceConfig(8, 100)\n"
         "assert (dt.decompress(dt.compress(x, cfg, device='cpu'), cfg,"
         " device='cpu') == x).all()\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'deltarice_tpu')]\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'deltarice_tpu', 'h5py')]\n"
         "assert not bad, bad\n"
     )
     res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_gather_into_a_given_array_equals_a_fresh_one():
+    x = get_profile("nab").synthetic(6, seed=2, length=700)
+    cfg = dt.RiceConfig(8, 700)
+    buf = np.frombuffer(codec.compress(x, cfg, device="cpu"), dtype="<u4")
+    counts, starts = codec.walk_headers(buf, 6)
+    want = codec.gather_segments(buf, counts, starts, 512)
+    out = np.zeros_like(want)
+    assert codec.gather_segments(buf, counts, starts, 512, out=out) is out
+    np.testing.assert_array_equal(out, want)
+    with pytest.raises(ValueError, match="C-contiguous"):
+        codec.gather_segments(buf, counts, starts, 512, out=out[:, :256])

@@ -372,3 +372,126 @@ def test_split_encode_on_the_card_never_merges_on_the_host(cuda,
     monkeypatch.setattr(codec, "merge_substreams_device", lambda *a: None)
     with pytest.raises(RuntimeError, match="middle sub-stream"):
         dt.compress_batch([chunk], cfg, device="cuda")
+
+
+class _Plist:
+    def __init__(self, filters):
+        self._filters = filters
+
+    def get_nfilters(self):
+        return len(self._filters)
+
+    def get_filter(self, i):
+        return self._filters[i]
+
+
+class _DatasetID:
+    def __init__(self, filters):
+        self.chunks = {}
+        self._plist = _Plist(filters)
+
+    def write_direct_chunk(self, offset, data, filter_mask=0):
+        self.chunks[tuple(offset)] = (filter_mask, bytes(data))
+
+    def read_direct_chunk(self, offset):
+        return self.chunks[tuple(offset)]
+
+    def get_create_plist(self):
+        return self._plist
+
+
+class _Dataset:
+    def __init__(self, name, shape, dtype, chunks, filters):
+        self.name, self.shape, self.chunks = name, tuple(shape), tuple(chunks)
+        self.dtype = np.dtype(dtype)
+        self.id = _DatasetID(filters)
+
+
+class _Group:
+    """In-memory direct-chunk store with the surface ``h5`` uses (the
+    card's machine has no h5py); the same as ``chip_smoke.py``'s."""
+
+    def __init__(self):
+        self.datasets = {}
+
+    def create_dataset(self, name, shape, dtype, chunks, compression,
+                       compression_opts, allow_unknown_filter=False):
+        self.datasets[name] = _Dataset(
+            name, shape, dtype, chunks,
+            [(compression, 0, tuple(compression_opts), b"deltarice")])
+        return self.datasets[name]
+
+    def __getitem__(self, name):
+        return self.datasets[name]
+
+
+@pytest.mark.parametrize("name,rows,batch", [("nab", 150, 2),
+                                             ("noptrex", 96, 1)])
+def test_h5_window_pipeline_matches_native(cuda, name, rows, batch,
+                                           monkeypatch):
+    from deltarice_tpu_torch import h5
+
+    prof = get_profile(name)
+    x = prof.synthetic(rows, seed=3)
+    cfg = prof.config
+    store = _Group()
+    dset = h5.write_dataset(store, "d", x, cfg, (32, x.shape[1]),
+                            batch_chunks=batch, verify=name == "nab",
+                            device="cuda")
+    assert len(dset.id.chunks) == -(-rows // 32)
+    for off, (mask, blob) in dset.id.chunks.items():
+        full = np.zeros((32, x.shape[1]), np.int16)
+        part = x[off[0]: off[0] + 32]
+        full[: len(part)] = part
+        assert mask == 0 and blob == native_compress(full, cfg.to_cd_values())
+    for split in ("0", "1"):
+        monkeypatch.setenv("DELTARICE_TPU_SPLIT_DECODE", split)
+        assert np.array_equal(h5.read_dataset(store["d"], batch_chunks=batch,
+                                              device="cuda"), x)
+
+
+def test_collect_does_not_wait_for_the_next_window(cuda, monkeypatch):
+    """Collect of a Nab encode window returns while a later NOPTREX decode
+    bucket (B2, one thread per 500,000-sample segment) still runs."""
+    monkeypatch.delenv("DELTARICE_TPU_SPLIT_DECODE", raising=False)
+    nab_cfg = get_profile("nab").config
+    opt_cfg = get_profile("noptrex").config
+    opt_chunk = get_profile("noptrex").synthetic(32, seed=0)
+    blobs = dt.compress_batch([opt_chunk, opt_chunk], opt_cfg, device="cuda")
+    chunks = list(_nab(16 * 32).reshape(16, 32, 7000))
+    dt.decompress_batch(blobs, opt_cfg, device="cuda")  # warm the caches
+    torch.cuda.synchronize()
+    enc = codec.compress_batch_dispatch(chunks, nab_cfg, "cuda")
+    dec = codec.decompress_batch_dispatch(blobs, opt_cfg, "cuda")
+    streams = codec.compress_batch_collect(enc, nab_cfg)
+    assert not dec[2][3].query()
+    back = codec.decompress_batch_collect(dec)
+    for c, s in zip(chunks, streams):
+        assert s == native_compress(c, nab_cfg.to_cd_values())
+    assert all(np.array_equal(b, opt_chunk.ravel()) for b in back)
+
+
+@pytest.mark.parametrize("n_taps", [2, 3])
+def test_optimize_on_the_card_equals_the_cpu(cuda, n_taps):
+    from deltarice_tpu_torch import optimize as opt
+
+    x = _nab(64)
+    got = opt.optimize(x, n_taps=n_taps, device="cuda")
+    assert got == opt.optimize(x, n_taps=n_taps, device="cpu")
+    b_gpu = opt.expected_bits(x, got.m, got.filt, device="cuda")
+    b_cpu = opt.expected_bits(x, got.m, got.filt, device="cpu")
+    assert abs(b_gpu - b_cpu) <= 1e-6 * b_cpu
+
+
+def test_over_cap_rows_reencode_on_the_collect_stream(cuda, monkeypatch):
+    # a cap below every row's word count: collect re-encodes every row at
+    # the full bound, on its own stream, while a later window is queued
+    chunks = list(_nab(96).reshape(3, 32, 7000))
+    cfg = dt.RiceConfig(8, 7000)
+    monkeypatch.setattr(codec, "_words_hint", lambda x, c, n: 256)
+    first = codec.compress_batch_dispatch(chunks[:2], cfg, "cuda")
+    later = codec.compress_batch_dispatch(chunks[2:], cfg, "cuda")
+    streams = (codec.compress_batch_collect(first, cfg)
+               + codec.compress_batch_collect(later, cfg))
+    for c, s in zip(chunks, streams):
+        assert s == native_compress(c, cfg.to_cd_values())

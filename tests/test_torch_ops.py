@@ -250,3 +250,73 @@ def test_config_k_and_bounds_match_jax():
         a, b = RiceConfig(m, 100), JaxConfig(m, 100)
         assert (a.k, a.max_bits_per_sample(), a.max_words(7000)) == (
             b.k, b.max_bits_per_sample(), b.max_words(7000))
+
+
+# --- the TPU's rate and service modes of B1 and B2 ------------------------
+#
+# The JAX encode kernel can stage one slot per R samples (rate 2, 4) and the
+# decode kernel can serve fewer codeword starts per word than the static
+# bound (j_eff); both shrink the TPU's staging and flag the rows that did
+# not fit for an exact re-do, and neither changes a word of a stream or a
+# decoded sample. The port's B1 and B2 store at final offsets and are exact
+# at every rate: their plain versions must equal the JAX kernels (run in
+# interpret mode) on every row the JAX kernel did not flag.
+
+
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    """Every ``pallas_call`` in interpret mode (overriding explicit
+    ``interpret=False``, as in ``transpose2d``), and the decode kernel's
+    unrolled word loop at one word per step (compile time only)."""
+    import jax.experimental.pallas as pl
+    from deltarice_tpu.ops import unpack_pallas
+
+    orig = pl.pallas_call
+    monkeypatch.setattr(pl, "pallas_call",
+                        lambda *a, **kw: orig(*a, **{**kw, "interpret": True}))
+    monkeypatch.setattr(unpack_pallas, "_GROUP", 1)
+
+
+@pytest.mark.parametrize("rate", [2, 4])
+def test_pack_plain_covers_the_jax_encode_rates(pallas_interpret, rate):
+    from deltarice_tpu.ops.pack_pallas import pack_encode_pallas_bits
+
+    k, length = 3, 1000
+    x = _walk(8, length, 8.0, 0)
+    x[5:] = _uniform(3, length, 1)  # dense rows: overrun the rate, flag
+    nv = np.full(8, length, np.int32)
+    mw = RiceConfig(1 << k).max_words(length)
+    words, nwords, nbits, bad = pack_encode_pallas_bits(
+        jnp.asarray(x), jnp.asarray(nv), k, mw, True, None, rate)
+    wt, nwt, nbt = pack_encode(torch.from_numpy(np.ascontiguousarray(x.T)),
+                               torch.from_numpy(nv), None, k, True, mw)
+    bad = np.asarray(bad)
+    assert bad[5:].all() and not bad[:5].any()
+    np.testing.assert_array_equal(np.asarray(nwords), _np(nwt))
+    np.testing.assert_array_equal(np.asarray(nbits), _np(nbt))
+    np.testing.assert_array_equal(np.asarray(words).view(np.int32)[~bad],
+                                  _np(wt).T[~bad])
+
+
+@pytest.mark.parametrize("j,flags", [(2, True), (4, False)])
+def test_unpack_plain_covers_the_jax_service_rates(pallas_interpret, j,
+                                                   flags):
+    from deltarice_tpu.ops.unpack_pallas import unpack_decode_pallas
+
+    k, length = 3, 512
+    x = _walk(8, length, 30.0, 3)  # about 2.6 codeword starts per word
+    x[4:] = _walk(4, length, 60.0, 4)  # under 2
+    cap = RiceConfig(1 << k).max_words(length) + 1
+    wt, nwt, _ = pack_encode(torch.from_numpy(np.ascontiguousarray(x.T)),
+                             torch.full((8,), length, dtype=torch.int32),
+                             None, k, True, cap)
+    starts = length / _np(nwt)
+    assert (starts[:4] > 2).all() and (starts < 4).all()
+    words = np.ascontiguousarray(_np(wt).T).view(np.uint32)
+    out, bad = unpack_decode_pallas(jnp.asarray(words), length, k, True,
+                                    True, j)
+    plain = _np(unpack_decode(wt, length, k, True)).T
+    bad = np.asarray(bad)
+    assert bad.any() == flags and not bad.all()
+    np.testing.assert_array_equal(plain, x)
+    np.testing.assert_array_equal(np.asarray(out)[~bad], plain[~bad])
