@@ -8,27 +8,30 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
 1. prints the card's name and power limit (nvidia-smi) and the build time;
 2. holds B1-B4 against their plain torch versions (run on a CPU copy of
    the same inputs) at the Nab path's shapes — 2048 Nab segments of 7000
-   samples, M=8 — exact equality, and times kernel and plain version on
-   the card with CUDA events;
+   samples, M=8 — exact equality, and times kernel, plain version and
+   (B4) the one PyTorch call that computes the same function on the card
+   with CUDA events;
 3. round-trips the 8 committed golden vectors with ``device="cuda"``;
 4. drives the Nab path: ``compress_batch`` / ``decompress_batch`` of 64
    Nab chunks of (32, 7000) int16; every stream must equal the native C
-   codec's byte for byte, every chunk must decode exactly, and the pack,
-   unpack and transpose kernels must each have launched;
+   codec's byte for byte, every chunk must decode exactly, and the pack
+   and unpack kernels must each have launched;
 5. drives the long-segment path on nEDM (1024 x 81920, M=16, as 32 chunks
    of (32, 81920)) and NOPTREX (256 x 500000, M=8, as 8 chunks of
    (32, 500000)): the sub-block split encode with its device merge (B3 for
    nEDM, B5 for NOPTREX), the exact decode (B2) with the split switch off
-   and the speculative split decode (B9 + B6) with it on; every stream must
-   equal native ``dr_compress``, every chunk must decode exactly both ways
-   and through native ``dr_decompress``, and each kernel of the path must
-   have launched;
+   and the speculative split decode (B4 + B9 + B6) with it on; every
+   stream must equal native ``dr_compress``, every chunk must decode
+   exactly both ways and through native ``dr_decompress``, and each kernel
+   of the path must have launched;
 6. holds B5, B6 and B9 against their plain versions on the inputs the
    long-segment path gave them (B9's plain loop on its first 64 segments),
-   and B7 (nEDM) and B8 (NOPTREX) on the tiled staging the JAX decode
-   kernel emits for the same decode buckets, which must concentrate back
-   into the decoded samples (the port's own decode makes no staging, so its
-   path launches neither);
+   B1 at the NOPTREX split's sub-row shape and B2 at one NOPTREX h5
+   bucket's shape (64 segments; its plain version there is the plain model
+   of its tiled passes, ``ops/tiled_model.py``), and B7 (nEDM) and B8
+   (NOPTREX) on the tiled staging the JAX decode kernel emits for the same
+   decode buckets, which must concentrate back into the decoded samples
+   (the port's own decode makes no staging, so its path launches neither);
 7. drives the HDF5 entry point on an in-memory direct-chunk store
    (:class:`MemGroup`; the card's machine has no h5py): ``h5.write_dataset``
    and ``h5.read_dataset`` of Nab 2000 x 7000 in (32, 7000) chunks (the
@@ -37,12 +40,16 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    stored blob must equal native ``dr_compress`` of its zero-padded chunk,
    and the read must give back the input with the split switch off and on;
 8. checks the one-window-deep pipeline: collect of a Nab encode window
-   must return while the decode of a later NOPTREX bucket (B2, about
-   125 ms) is still running on the card;
+   must return while the decode of a later NOPTREX bucket, queued behind
+   a spin kernel of about 0.2 s, is still running on the card;
 9. runs ``optimize`` over the whole Nab dataset on the card (and on its
    first 64 rows against ``device="cpu"``), then the CLI's ``warmup`` and
    ``install-plugin`` as subprocesses;
-10. prints a JSON line of the kernels, then the JSON ``ok`` line last.
+10. prints a JSON line of the kernels — each row with its launches on the
+   path, its time, its plain version's, the one-call PyTorch yardstick's
+   where there is one, and its bound: the bytes its inputs need and its
+   outputs take over the H100's 3.35 TB/s — then the JSON ``ok`` line
+   last.
 
 Each phase prints its seconds. Any failed phase exits nonzero before the
 ``ok`` line. Without a CUDA card, or outside a checkout of the repository,
@@ -75,6 +82,20 @@ SPLIT_ENV = "DELTARICE_TPU_SPLIT_DECODE"
 # B7 and B8 compact TPU decode staging, which the port's decode never makes
 STAGING_KERNELS = ("concentrate_tiled", "concentrate_tiled_vd")
 REF_C_GBPS = 2.0 / (1.0 / 2.387 + 1.0 / 1.782)  # reference C write/read, hmean
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+OPT_BUCKET = 64  # segments of one NOPTREX h5 decode bucket (2 chunks of 32)
+SPIN_CYCLES = 400_000_000  # phase 8's torch.cuda._sleep: about 0.2 s
+# why no single PyTorch call computes a kernel's function (library_ms null)
+NO_LIBRARY = {
+    "pack_encode": "no PyTorch call Rice-codes or bit-packs",
+    "unpack_decode": "no PyTorch call decodes a Rice stream",
+    "split_decode": "no PyTorch call decodes a Rice stream",
+    "concentrate_packed": "a scatter needs the destination plane slot - disp "
+                          "and a dump slot for dead slots built first",
+}
+for _name in ("concentrate_wide", "concentrate_wide16", "concentrate_tiled",
+              "concentrate_tiled_vd"):
+    NO_LIBRARY[_name] = NO_LIBRARY["concentrate_packed"]
 
 
 class SmokeFailure(Exception):
@@ -107,6 +128,16 @@ def signed(t):
     return t.view(torch.int32) if t.dtype == torch.uint32 else t
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_ms(n: int) -> float:
+    """Least milliseconds for the card to move ``n`` bytes (each input
+    read once, each output written once) at its memory rate."""
+    return n / HBM_BYTES_PER_S * 1e3
+
+
 def max_err(got, want) -> int:
     check(got.shape == want.shape and got.dtype == want.dtype,
           f"shape/dtype {tuple(got.shape)} {got.dtype} vs "
@@ -117,10 +148,11 @@ def max_err(got, want) -> int:
                .abs().max())
 
 
-def phase_device() -> None:
+def phase_device() -> str:
+    """Build the kernels and the native codec; returns the card's name
+    and power limit as nvidia-smi gives them."""
     from deltarice_tpu_torch import native
     from deltarice_tpu_torch.ops import _kernels
-
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -128,7 +160,8 @@ def phase_device() -> None:
         capture_output=True, text=True, timeout=60,
     )
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     t0 = time.perf_counter()
     _kernels.library()
     t1 = time.perf_counter()
@@ -137,6 +170,7 @@ def phase_device() -> None:
     print(f"[1 device] {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__} CUDA {torch.version.cuda}; kernels built in "
           f"{t1 - t0:.3f} s, native codec in {t2 - t1:.3f} s")
+    return card
 
 
 def phase_kernels(x_np) -> list[dict]:
@@ -163,15 +197,19 @@ def phase_kernels(x_np) -> list[dict]:
     cap = _words_hint(x_np, cfg, LENGTH)
     rows = []
 
-    def record(name, src, replaces, err, ms, plain_ms, shape):
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms, "shape": shape})
+    def record(name, src, replaces, err, ms, plain_ms, shape, moved,
+               library_ms=None):
+        rows.append(kernel_row(name, src, replaces, err, ms, plain_ms, shape,
+                               moved, library_ms, "nab"))
         print(f"[2 kernels] {name} {shape}: max_abs_err {err}, kernel "
-              f"{ms:.4f} ms, plain torch on the card {plain_ms:.4f} ms")
+              f"{ms:.4f} ms, plain torch on the card {plain_ms:.4f} ms, "
+              f"bound {bound_ms(moved):.4f} ms"
+              + ("" if library_ms is None
+                 else f", one PyTorch call {library_ms:.4f} ms"))
         check(err == 0, f"{name} disagrees with its plain version")
 
-    # B4 on the int16 samples and on uint32 words
+    # B4 on the int16 samples and on uint32 words; its one-call yardstick
+    # is x.t().contiguous(), which is also its plain version
     gen = torch.Generator().manual_seed(0)
     words_u32 = torch.randint(-2**31, 2**31, (ROWS, 1280), generator=gen,
                               dtype=torch.int64).to(torch.int32).view(torch.uint32)
@@ -185,63 +223,82 @@ def phase_kernels(x_np) -> list[dict]:
            "deltarice_tpu/ops/transpose_pallas.py:21", err,
            cuda_ms(lambda: transpose2d(xc), 20),
            cuda_ms(lambda: transpose2d_plain(xc), 20),
-           [ROWS, LENGTH])
+           [ROWS, LENGTH], 2 * nbytes(x),
+           cuda_ms(lambda: xc.t().contiguous(), 20))
 
-    # B1 at the main path's hint cap
-    xt = x.t().contiguous()
-    xtc = xt.cuda()
-    got = pack_encode(xtc, nvc, None, k, True, cap)
+    # B1 at the main path's hint cap, segment-major
+    got = pack_encode(xc, nvc, None, k, True, cap)
     torch.cuda.synchronize()
-    want = pack_encode(xt, nv, None, k, True, cap)
+    want = pack_encode(x, nv, None, k, True, cap)
     err = max(max_err(g, w) for g, w in zip(got, want))
+    words, nwords, _ = want
     record("pack_encode", "deltarice_tpu_torch/csrc/pack.cu",
            "deltarice_tpu/ops/pack_pallas.py:62", err,
-           cuda_ms(lambda: pack_encode(xtc, nvc, None, k, True, cap), 20),
-           cuda_ms(lambda: pack_encode_plain(xtc, nvc, None, k, True,
+           cuda_ms(lambda: pack_encode(xc, nvc, None, k, True, cap), 20),
+           cuda_ms(lambda: pack_encode_plain(xc, nvc, None, k, True,
                                                     cap), 5),
-           [LENGTH, ROWS])
+           [ROWS, LENGTH], pack_bytes(nv, nwords))
 
-    # B2 on the framed streams as the decoder gathers them (word-major,
+    # B2 on the framed streams as the decoder gathers them (segment-major,
     # >= 1 zero pad word)
-    words_t, nwords, _ = want
     check(int(nwords.max()) <= cap, "Nab rows overflowed the hint cap")
-    words_i32 = words_t.t().contiguous()
     buf = np.frombuffer(frame_stream(ROWS * LENGTH,
-                                     words_i32.numpy().view(np.uint32),
+                                     words.numpy().view(np.uint32),
                                      nwords.numpy()), dtype="<u4")
     counts, starts = walk_headers(buf, ROWS)
-    g = gather_segments(buf, counts, starts)
-    wt = torch.from_numpy(np.ascontiguousarray(g.T).view(np.int32))
+    wt = torch.from_numpy(gather_segments(buf, counts, starts).view(np.int32))
     wtc = wt.cuda()
     got = unpack_decode(wtc, LENGTH, k)
     torch.cuda.synchronize()
     want = unpack_decode(wt, LENGTH, k)
     err = max_err(got, want)
-    check(torch.equal(want, xt), "plain decode does not return the samples")
+    check(torch.equal(want, x), "plain decode does not return the samples")
     record("unpack_decode", "deltarice_tpu_torch/csrc/unpack.cu",
            "deltarice_tpu/ops/unpack_pallas.py:171", err,
            cuda_ms(lambda: unpack_decode(wtc, LENGTH, k), 20),
            cuda_ms(lambda: unpack_decode_plain(wtc, LENGTH, k, True), 1),
-           [int(wt.shape[0]), ROWS])
+           [ROWS, int(wt.shape[1])], unpack_bytes(counts, got))
 
     # B3 on TPU-encoder staging: slot = sample index, one live slot per word
     lens, _ = codeword_lengths_values(zigzag(prefilter_encode(x)), k)
     slots = (LENGTH // 512 + 1) * 512
-    lead, follow = staged_planes(lens, words_i32, slots)
+    lead, follow = staged_planes(lens, words, slots)
     leadc, followc = lead.cuda(), follow.cuda()
     got = concentrate_packed((leadc, followc), cap, True)
     torch.cuda.synchronize()
     want = concentrate_packed((lead, follow), cap, True)
     err = max_err(got, want)
-    check(torch.equal(want, words_i32), "plain concentration lost words")
+    check(torch.equal(want, words), "plain concentration lost words")
     record("concentrate_packed", "deltarice_tpu_torch/csrc/concentrate.cu",
            "deltarice_tpu/ops/concentrate_pallas.py:69", err,
            cuda_ms(lambda: concentrate_packed((leadc, followc), cap,
                                                      True), 20),
            cuda_ms(lambda: concentrate_packed_plain((leadc, followc),
                                                            cap, True), 5),
-           [ROWS, slots])
+           [ROWS, slots], nbytes(lead, follow, got))
     return rows
+
+
+def pack_bytes(nvalid, nwords) -> int:
+    """B1's bytes: the valid samples in, the stream words and per-segment
+    counts out (words past each stream are the caller's zeros)."""
+    return (2 * int(nvalid.to(torch.int64).sum())
+            + 4 * int(nwords.to(torch.int64).sum()) + 12 * nvalid.numel())
+
+
+def unpack_bytes(counts, out) -> int:
+    """B2's bytes: the stream words in (their counts; the bucket's zero
+    padding needs no read), the samples out."""
+    return 4 * int(np.asarray(counts, dtype=np.int64).sum()) + nbytes(out)
+
+
+def kernel_row(name, src, replaces, err, ms, plain_ms, shape, moved,
+               library_ms, path) -> dict:
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms(moved),
+            "bound_by": "bytes", "bytes": moved, "library_ms": library_ms,
+            "shape": shape, "path": path}
 
 
 def phase_golden() -> None:
@@ -282,7 +339,7 @@ def phase_main_path(x_np) -> dict:
     print(f"[4 main path] {len(chunks)} chunks of ({CHUNK_ROWS}, {LENGTH}) "
           f"int16: every stream equals native dr_compress, every chunk "
           f"decodes exactly; launches {json.dumps(launches, sort_keys=True)}")
-    for name in ("pack_encode", "unpack_decode", "transpose2d"):
+    for name in ("pack_encode", "unpack_decode"):
         check(launches.get(name, 0) > 0, f"main path never launched {name}")
     raw = x_np.nbytes
     comp = sum(len(s) for s in streams)
@@ -351,6 +408,7 @@ def phase_long(name: str, x_np) -> tuple[dict, dict]:
                    (conc_router, "concentrate_wide"),
                    (sd, "concentrate_wide16"),
                    (sd, "split_decode"),
+                   (codec, "pack_encode"),
                    (codec, "unpack_decode"),
                    (codec, "unpack_decode_split")]) as (calls, _ms):
         streams = dt.compress_batch(chunks, cfg, device="cuda")
@@ -389,9 +447,9 @@ def phase_long(name: str, x_np) -> tuple[dict, dict]:
         check(np.array_equal(native.native_decompress(s, cd), c.ravel()),
               f"{name} chunk {i}: native dr_decompress disagrees")
     merge = "concentrate_packed" if name == "nedm" else "concentrate_wide"
-    need = {"encode+decode(off)": ("pack_encode", "transpose2d", merge,
-                                   "unpack_decode"),
-            "decode(on)": ("split_decode", "concentrate_wide16")}
+    need = {"encode+decode(off)": ("pack_encode", merge, "unpack_decode"),
+            "decode(on)": ("transpose2d", "split_decode",
+                           "concentrate_wide16")}
     for window, names in need.items():
         for kernel in names:
             check(windows[window].get(kernel, 0) > 0,
@@ -419,10 +477,12 @@ def phase_long(name: str, x_np) -> tuple[dict, dict]:
     return windows, calls, streams
 
 
-def phase_long_kernels(calls_by_path: dict) -> list[dict]:
+def phase_long_kernels(calls_by_path: dict) -> tuple[list, list]:
     """B5, B6 and B9 against their plain versions on the inputs the
-    long-segment path gave them (B3 too, at the nEDM merge's shape). B9's
-    shape is (sub-rows, words per sub-row)."""
+    long-segment path gave them (B3 too, at the nEDM merge's shape), and B7
+    and B8 on the JAX decode's staging of the same buckets. B9's shape is
+    (sub-rows, words per sub-row). Returns (their rows, the rows of B1 at
+    the NOPTREX split's sub-row shape and B2 at one NOPTREX h5 bucket's)."""
     from deltarice_tpu_torch.ops.concentrate_cuda import (
         concentrate_packed, concentrate_packed_plain, concentrate_wide,
         concentrate_wide_plain, concentrate_wide16, concentrate_wide16_plain)
@@ -432,21 +492,22 @@ def phase_long_kernels(calls_by_path: dict) -> list[dict]:
     from deltarice_tpu_torch.ops.split_decode import unpack_decode_split
     from deltarice_tpu_torch.ops.split_decode_cuda import (
         split_decode, split_decode_plain)
-    from deltarice_tpu_torch.ops.transpose_cuda import transpose2d
     from deltarice_tpu_torch.ops.unpack_cuda import unpack_decode
 
     rows = {}
 
-    def compare(kernel, err, ms, plain_ms, shape, plain_shape, path):
+    def compare(kernel, err, ms, plain_ms, shape, plain_shape, path, moved):
         print(f"[6 long kernels] {kernel} {path} {shape}: max_abs_err {err},"
               f" kernel {ms:.4f} ms, plain torch on the card {plain_ms:.4f}"
-              f" ms (plain on {plain_shape})")
+              f" ms (plain on {plain_shape}), bound {bound_ms(moved):.4f} ms")
         check(err == 0, f"{kernel} ({path}) disagrees with its plain version")
         row = rows.get(kernel)
         err_all = err if row is None else max(err, row["max_abs_err"])
         if path == "noptrex" or row is None:
             rows[kernel] = {"max_abs_err": err_all, "ms": ms,
-                            "plain_ms": plain_ms, "shape": shape,
+                            "plain_ms": plain_ms, "bound_ms": bound_ms(moved),
+                            "bound_by": "bytes", "bytes": moved,
+                            "library_ms": None, "shape": shape,
                             "plain_shape": plain_shape, "path": path}
         else:
             row["max_abs_err"] = err_all
@@ -456,21 +517,20 @@ def phase_long_kernels(calls_by_path: dict) -> list[dict]:
         b2 = calls["unpack_decode"][0]
         split = calls["unpack_decode_split"][0]
         _out, bad = unpack_decode_split(*split)
-        b2_ms = cuda_ms(lambda: transpose2d(unpack_decode(*b2)), 5)
+        b2_ms = cuda_ms(lambda: unpack_decode(*b2), 5)
         split_ms = cuda_ms(lambda: unpack_decode_split(*split), 5)
-        print(f"[6 long kernels] decode layer {path}, {b2[0].shape[1]} "
-              f"segments of {b2[0].shape[0]} words: B2 + transpose "
-              f"{b2_ms:.4f} ms; split P={split[5]} (B9 + merge + B6) "
-              f"{split_ms:.4f} ms, {int(bad.sum())} segments flagged for "
-              f"B2 re-decode")
+        print(f"[6 long kernels] decode layer {path}, {b2[0].shape[0]} "
+              f"segments of {b2[0].shape[1]} words: B2 {b2_ms:.4f} ms; split "
+              f"P={split[5]} (B9 + merge + B6, after B4) {split_ms:.4f} ms, "
+              f"{int(bad.sum())} segments flagged for B2 re-decode")
         # B7 / B8 on the staging the JAX decode kernel emits for the bucket
-        words_t, n_samples, k = b2[:3]
-        nseg = words_t.shape[1]
-        samples = transpose2d(unpack_decode(*b2))
-        route = staging_route(nseg, words_t.shape[0], k)
+        words, n_samples, k = b2[:3]
+        nseg, w = words.shape
+        samples = unpack_decode(*b2)
+        route = staging_route(nseg, w, k)
         check(route is not None, f"{path}: the JAX decode makes no staging")
         mode, j, wc, sb = route
-        planes = decode_staging(samples, k, words_t.shape[0], j, wc, sb, mode)
+        planes = decode_staging(samples, k, w, j, wc, sb, mode)
         if mode == "vd":
             kernel = "concentrate_tiled_vd"
             run = lambda: concentrate_tiled_vd(*planes, n_samples, sb)
@@ -489,7 +549,8 @@ def phase_long_kernels(calls_by_path: dict) -> list[dict]:
               f"({mode}, {j} slots per word, {wc}-word chunks, sb={sb}) of "
               f"{nseg} segments, {planes[0].shape[1] // sb} slots each")
         compare(kernel, err, cuda_ms(run, 20), cuda_ms(run_plain, 3),
-                list(planes[0].shape), list(planes[0].shape), path)
+                list(planes[0].shape), list(planes[0].shape), path,
+                nbytes(*planes, got))
         del planes, got, samples
         for args in calls["concentrate_packed"][:1]:
             got = concentrate_packed(*args)
@@ -497,21 +558,24 @@ def phase_long_kernels(calls_by_path: dict) -> list[dict]:
             compare("concentrate_packed", err,
                     cuda_ms(lambda: concentrate_packed(*args), 20),
                     cuda_ms(lambda: concentrate_packed_plain(*args), 3),
-                    list(args[0][0].shape), list(args[0][0].shape), path)
+                    list(args[0][0].shape), list(args[0][0].shape), path,
+                    nbytes(*args[0], got))
         for args in calls["concentrate_wide"][:1]:
             got = concentrate_wide(*args)
             err = max_err(got, concentrate_wide_plain(*args))
             compare("concentrate_wide", err,
                     cuda_ms(lambda: concentrate_wide(*args), 20),
                     cuda_ms(lambda: concentrate_wide_plain(*args), 3),
-                    list(args[0].shape), list(args[0].shape), path)
+                    list(args[0].shape), list(args[0].shape), path,
+                    nbytes(*args[:2], got))
         for args in calls["concentrate_wide16"][:1]:
             got = concentrate_wide16(*args)
             err = max_err(got, concentrate_wide16_plain(*args))
             compare("concentrate_wide16", err,
                     cuda_ms(lambda: concentrate_wide16(*args), 20),
                     cuda_ms(lambda: concentrate_wide16_plain(*args), 3),
-                    list(args[0].shape), list(args[0].shape), path)
+                    list(args[0].shape), list(args[0].shape), path,
+                    nbytes(args[0], got))
         for args in calls["split_decode"][:1]:
             words_t, wv, parts = args[:3]
             nseg = min(B9_PLAIN_SEGMENTS, words_t.shape[1])
@@ -525,10 +589,12 @@ def phase_long_kernels(calls_by_path: dict) -> list[dict]:
             plain_ms = (time.perf_counter() - t0) * 1e3
             err = max(max_err(local[: nseg * parts], want[0]),
                       max_err(meta[:, : nseg * parts], want[1]))
+            # the words each sub-row owns in, its samples and scalars out
+            moved = 4 * int(wv.to(torch.int64).sum()) + nbytes(local, meta)
             compare("split_decode", err,
                     cuda_ms(lambda: split_decode(*args), 20), plain_ms,
                     [int(words_t.shape[1]) * parts, args[3]],
-                    [nseg * parts, args[3]], path)
+                    [nseg * parts, args[3]], path, moved)
     src = {"concentrate_packed": ("deltarice_tpu_torch/csrc/concentrate.cu",
                                   "deltarice_tpu/ops/concentrate_pallas.py:69"),
            "concentrate_wide": ("deltarice_tpu_torch/csrc/concentrate_wide.cu",
@@ -547,8 +613,63 @@ def phase_long_kernels(calls_by_path: dict) -> list[dict]:
     for kernel in ("concentrate_wide", "concentrate_wide16", "split_decode",
                    "concentrate_tiled", "concentrate_tiled_vd"):
         check(kernel in rows, f"the long-segment path never called {kernel}")
-    return [{"name": k, "route": "cuda", "source": src[k][0],
-             "replaces": src[k][1], **v} for k, v in rows.items()]
+    return ([{"name": k, "route": "cuda", "source": src[k][0],
+              "replaces": src[k][1], **v} for k, v in rows.items()],
+            phase_long_codec(calls_by_path["noptrex"]))
+
+
+def phase_long_codec(calls) -> list[dict]:
+    """B1 on the NOPTREX split encode's sub-rows and B2 on one NOPTREX h5
+    bucket (the first OPT_BUCKET segments of a decode bucket), each against
+    its plain version on the card: B1's serial oracle, and for B2 the plain
+    model of its tiled passes (the serial oracle would step 500,000 samples
+    one torch call at a time)."""
+    from deltarice_tpu_torch.ops.pack_cuda import pack_encode, pack_encode_plain
+    from deltarice_tpu_torch.ops.tiled_model import decode_tiled
+    from deltarice_tpu_torch.ops.unpack_cuda import unpack_decode
+
+    out = []
+    args = calls["pack_encode"][0]
+    got = pack_encode(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = pack_encode_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(max_err(g, w) for g, w in zip(got, want))
+    del want
+    out.append(kernel_row(
+        "pack_encode", "deltarice_tpu_torch/csrc/pack.cu",
+        "deltarice_tpu/ops/pack_pallas.py:62", err,
+        cuda_ms(lambda: pack_encode(*args), 20), plain_ms,
+        list(args[0].shape), pack_bytes(args[1], got[1]), None,
+        "noptrex split sub-rows"))
+    words, n_samples, k, delta = calls["unpack_decode"][0]
+    words = words[:OPT_BUCKET].contiguous()
+    got = unpack_decode(words, n_samples, k, delta)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = decode_tiled(words, n_samples, k, delta)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max_err(got, want)
+    del want
+    # each stream's words: up to its last nonzero word
+    counts = (words != 0).to(torch.int64).cumsum(dim=1).argmax(dim=1) + 1
+    out.append(kernel_row(
+        "unpack_decode", "deltarice_tpu_torch/csrc/unpack.cu",
+        "deltarice_tpu/ops/unpack_pallas.py:171", err,
+        cuda_ms(lambda: unpack_decode(words, n_samples, k, delta), 20),
+        plain_ms, list(words.shape), unpack_bytes(counts.cpu().numpy(), got),
+        None, "noptrex h5 bucket"))
+    for row in out:
+        print(f"[6 long kernels] {row['name']} {row['path']} {row['shape']}: "
+              f"max_abs_err {row['max_abs_err']}, kernel {row['ms']:.4f} ms, "
+              f"plain torch on the card {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms")
+        check(row["max_abs_err"] == 0,
+              f"{row['name']} ({row['path']}) disagrees with its plain version")
+    return out
 
 
 class MemPlist:
@@ -654,9 +775,8 @@ def phase_h5(name: str, x_np) -> dict:
         check(np.array_equal(back, x),
               f"{name} h5 read (split {'on' if on else 'off'}) differs")
     split_switch(False)
-    for kernel in ("pack_encode", "transpose2d"):
-        check(runs["write"].get(kernel, 0) > 0,
-              f"{name} h5 write never launched {kernel}")
+    check(runs["write"].get("pack_encode", 0) > 0,
+          f"{name} h5 write never launched pack_encode")
     h5_breakdown(name, store, x, cfg, chunks, batch)
     check(runs["read(split off)"].get("unpack_decode", 0) > 0,
           f"{name} h5 read never launched unpack_decode")
@@ -717,8 +837,9 @@ def h5_breakdown(name, store, x, cfg, chunks, batch) -> None:
 
 def phase_overlap(nab_np, noptrex_streams) -> None:
     """Collect of window i-1 must not wait for window i's kernels: dispatch
-    a Nab encode window, then a NOPTREX decode bucket (B2, split switch
-    off), then collect the Nab window while that bucket still runs."""
+    a Nab encode window, then a NOPTREX decode bucket (split switch off)
+    queued behind a spin kernel of about 0.2 s, so that it is still running
+    however fast B2 is, then collect the Nab window."""
     from deltarice_tpu_torch import codec, native
     from deltarice_tpu_torch.models import get_profile
 
@@ -730,6 +851,7 @@ def phase_overlap(nab_np, noptrex_streams) -> None:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     enc = codec.compress_batch_dispatch(chunks, nab_cfg, "cuda")
+    torch.cuda._sleep(SPIN_CYCLES)
     dec = codec.decompress_batch_dispatch(blobs, opt_cfg, "cuda")
     t1 = time.perf_counter()
     streams = codec.compress_batch_collect(enc, nab_cfg)
@@ -738,8 +860,9 @@ def phase_overlap(nab_np, noptrex_streams) -> None:
     t3 = time.perf_counter()
     back = codec.decompress_batch_collect(dec)
     t4 = time.perf_counter()
-    print(f"[8 overlap] dispatch Nab encode window (16 chunks) + NOPTREX "
-          f"decode bucket (2 chunks) {(t1 - t0) * 1e3:.1f} ms; Nab collect "
+    print(f"[8 overlap] dispatch Nab encode window (16 chunks) + spin + "
+          f"NOPTREX decode bucket (2 chunks) {(t1 - t0) * 1e3:.1f} ms; Nab "
+          f"collect "
           f"took {(t2 - t1) * 1e3:.1f} ms and returned with the NOPTREX "
           f"bucket {'still running' if later_running else 'already done'}; "
           f"NOPTREX collect waited {(t4 - t3) * 1e3:.1f} ms more")
@@ -821,7 +944,7 @@ def run() -> int:
     t_all = time.perf_counter()
     try:
         t = time.perf_counter()
-        phase_device()
+        card = phase_device()
         x_np = get_profile("nab").synthetic(ROWS, seed=0)
         kernels = phase_kernels(x_np)
         phase_golden()
@@ -836,7 +959,7 @@ def run() -> int:
             counted[name], calls[name], streams[name] = phase_long(
                 name, data[name])
         t = time.perf_counter()
-        long_rows = phase_long_kernels(calls)
+        long_rows, codec_rows = phase_long_kernels(calls)
         print(f"[6 long kernels] {time.perf_counter() - t:.1f} s")
         del calls
         for name in H5_ROWS:
@@ -854,20 +977,23 @@ def run() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    by_name = {row["name"]: row for row in kernels}
-    for row in long_rows:  # B3 keeps its Nab-shape row
-        by_name.setdefault(row["name"], row)
-    for row in by_name.values():
+    names = {row["name"] for row in kernels}  # B3 keeps its Nab-shape row
+    rows = (kernels + [r for r in long_rows if r["name"] not in names]
+            + codec_rows)
+    for row in rows:
         paths = {f"{path} {window}": n[row["name"]]
                  for path, windows in counted.items()
                  for window, n in windows.items() if n.get(row["name"])}
         row["launches"] = sum(paths.values())
         row["paths"] = paths
+        row["card"] = card
+        if row["library_ms"] is None:
+            row["library_note"] = NO_LIBRARY[row["name"]]
         if row["name"] in STAGING_KERNELS:
             row["note"] = ("not on the port's path: B2 and B9 store samples "
                            "at their final index and make no staging")
     print(f"[total] {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": list(by_name.values())}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

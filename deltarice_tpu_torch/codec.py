@@ -13,9 +13,10 @@ little-endian uint32 on disk.
 Split of responsibilities:
 
 * device: pre-filter, zigzag, codeword math, bit packing and unpacking —
-  the B1/B2 kernels, one thread per segment, between B4 transposes that
-  give them coalesced sample-major / word-major arrays. Both kernels store
-  at final offsets, so there is no staging or placement pass.
+  the B1/B2 kernels, each parallel inside a segment (tiles of samples or
+  words joined by prefix sums), on the segment-major arrays the codec
+  holds. Both kernels store at final offsets, so there is no staging or
+  placement pass.
 * long segments (nEDM 81920, NOPTREX 500000 samples): the encode splits
   each segment into P sub-blocks across threads and merges the sub-streams
   at bit offsets in one concentration (B3 or B5); the decode can split each
@@ -95,9 +96,7 @@ def encode_segments_bits(x, nvalid, cfg: RiceConfig, max_words: int,
         raise ValueError("prev0 is only supported for the delta filter")
     if not cfg.is_delta and not prefiltered:
         x = prefilter_encode(x, cfg.filt)
-    xt = transpose2d(x)
-    words_t, nwords, nbits = pack_encode(xt, nv, p0, cfg.k, diff, max_words)
-    return transpose2d(words_t), nwords, nbits
+    return pack_encode(x, nv, p0, cfg.k, diff, max_words)
 
 
 def _split_decode_enabled() -> bool:
@@ -173,8 +172,7 @@ def _decode_dispatch(words, n_samples: int, cfg: RiceConfig, device,
     if parts > 1:
         return (w, *_decode_device_split(transpose2d(w), counts, n_samples,
                                          cfg, parts, nvalid))
-    out = transpose2d(unpack_decode(transpose2d(w), n_samples, cfg.k,
-                                    cfg.is_delta))
+    out = unpack_decode(w, n_samples, cfg.k, cfg.is_delta)
     if not cfg.is_delta:
         out = prefilter_decode(out, cfg.filt)
     return w, out, None

@@ -6,10 +6,9 @@
  * allocated (outputs that must start zeroed are zeroed by the caller). Each
  * returns cudaGetLastError() after its launch, 0 on success.
  *
- * Layouts are row-major. The codec kernels run one thread per segment and
- * take sample-major / word-major arrays ((L, nseg), (W, nseg)) so that
- * neighbouring threads touch neighbouring addresses; dr_transpose2d converts
- * at the boundary.
+ * Layouts are row-major. The codec kernels B1 and B2 take segment-major
+ * arrays ((nseg, L) samples, (nseg, W) words), as the codec holds them;
+ * B9 reads word-major words (W, nseg), which dr_transpose2d makes.
  */
 #ifndef DR_KERNELS_H
 #define DR_KERNELS_H
@@ -25,21 +24,34 @@ int dr_transpose2d(const void *x, void *out, int64_t a, int64_t b,
                    int elem_size, void *stream);
 
 /* Fused delta (diff != 0, seeded by prev0[s], which may be NULL for 0) +
- * zigzag + Rice code + MSB-first pack of column s of xt (length, nseg)
- * int16. Word n of segment s goes to words_t[n * nseg + s] while n < cap
- * (caller zeroes words_t); nwords / nbits are exact regardless of cap. */
-int dr_pack_encode(const int16_t *xt, const int32_t *nvalid,
-                   const int32_t *prev0, int32_t *words_t, int32_t *nwords,
-                   int32_t *nbits, int64_t length, int64_t nseg, int64_t cap,
-                   int k, int diff, void *stream);
+ * zigzag + Rice code + MSB-first pack of row s of x (nseg, length) int16,
+ * samples at or past nvalid[s] left out. Word n of segment s goes to
+ * words[s * cap + n] while n < cap (the caller zeroes words); nwords /
+ * nbits are exact regardless of cap. scratch holds
+ * dr_pack_scratch_words(length, nseg) int32s. */
+int64_t dr_pack_scratch_words(int64_t length, int64_t nseg);
+int dr_pack_encode(const int16_t *x, const int32_t *nvalid,
+                   const int32_t *prev0, int32_t *words, int32_t *nwords,
+                   int32_t *nbits, int32_t *scratch, int64_t length,
+                   int64_t nseg, int64_t cap, int k, int diff, void *stream);
 
-/* Rice decode of column s of words_t (w, nseg) (uint32 bit patterns, at
- * least one zero pad word past each stream) into n_samples samples at
- * out_t[i * nseg + s]; with delta the wrapping int16 prefix sum is fused in,
- * otherwise the un-zigzagged values are stored. */
-int dr_unpack_decode(const int32_t *words_t, int16_t *out_t, int64_t w,
-                     int64_t nseg, int64_t n_samples, int k, int delta,
-                     void *stream);
+/* Rice decode of row s of words (nseg, w) (uint32 bit patterns, at least
+ * one zero pad word past each stream) into n_samples samples at
+ * out[s * n_samples + i] (out 8-byte aligned); with delta the wrapping
+ * int16 prefix sum is fused in, otherwise the un-zigzagged values are
+ * stored. The cursor is clamped at bit 32 * (w - 1), as the serial decode
+ * clamps it. scratch holds dr_unpack_scratch_bytes(w, nseg) bytes. */
+int64_t dr_unpack_scratch_bytes(int64_t w, int64_t nseg);
+int dr_unpack_decode(const int32_t *words, int16_t *out, void *scratch,
+                     int64_t scratch_bytes, int64_t w, int64_t nseg,
+                     int64_t n_samples, int k, int delta, void *stream);
+
+/* B2's first pass alone: for tile t (32 words) of segment s and entry
+ * phase e (0..24), tab[((s * ntiles + t) * 25 + e) * 2 + 0] = codewords
+ * starting in the tile and [.. + 1] = (their wrapping int16 sum << 16) |
+ * exit phase, ntiles = ceil((w - 1) / 32). */
+int dr_unpack_tables(const int32_t *words, int32_t *tab, int64_t w,
+                     int64_t nseg, int k, void *stream);
 
 /* Concentrate "sorted with gaps" rows: lead (rows, r) int32 holds
  * disp << 16 | high-or-only halfword for live slots (0 <= disp < 2^15) and

@@ -34,8 +34,9 @@
  * meta (4, rows) int32 = entry phase, exit phase, local count, final delta
  * state.
  *
- * Bound: the serial chain cursor -> window -> clz -> length -> cursor, as
- * B2's, but over parts times more threads of parts times fewer words
+ * Bound: the serial chain cursor -> window -> clz -> length -> cursor of a
+ * one-thread-per-segment decode, over parts times more threads of parts
+ * times fewer words
  * (NOPTREX 256 x 500000 at P=32: 8192 threads of ~2000 words instead of
  * 256 threads of ~62,500).
  */

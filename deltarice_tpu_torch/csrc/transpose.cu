@@ -2,9 +2,9 @@
  *
  * Replaces deltarice_tpu/ops/transpose_pallas.py::_tr_kernel (driven by
  * transpose2d). The TPU needed it to move data between segment-major rows
- * and its lane layout; here it converts between the codec's segment-major
- * arrays and the sample-major / word-major arrays the one-thread-per-
- * segment codec kernels read and write with coalesced accesses.
+ * and its lane layout; here it makes the word-major words (W, nseg) that
+ * B9 (split_decode.cu) reads with coalesced accesses from the codec's
+ * segment-major words.
  *
  * Bound: device-memory bandwidth (one read and one write of every element,
  * no arithmetic). A naive transpose makes one of the two sides strided; a

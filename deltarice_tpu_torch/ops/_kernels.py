@@ -36,8 +36,10 @@ _I = ctypes.c_int
 
 _SIGNATURES = {
     "dr_transpose2d": [_P, _P, _I64, _I64, _I, _P],
-    "dr_pack_encode": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P],
-    "dr_unpack_decode": [_P, _P, _I64, _I64, _I64, _I, _I, _P],
+    "dr_pack_encode": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I,
+                       _P],
+    "dr_unpack_decode": [_P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _P],
+    "dr_unpack_tables": [_P, _P, _I64, _I64, _I, _P],
     "dr_concentrate_packed": [_P, _P, _P, _I64, _I64, _I64, _P],
     "dr_concentrate_wide": [_P, _P, _P, _I64, _I64, _I64, _P],
     "dr_concentrate_wide16": [_P, _P, _I64, _I64, _I64, _P],
@@ -48,6 +50,9 @@ _SIGNATURES = {
     "dr_split_decode": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
                         _I, _I, _P],
 }
+
+#: scratch sizes the kernels' wrappers allocate: (length or words, nseg)
+_SIZES = ("dr_pack_scratch_words", "dr_unpack_scratch_bytes")
 
 #: kernel launches per wrapper name, counted where each wrapper launches
 #: its kernel and nowhere else
@@ -127,6 +132,10 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name in _SIZES:
+            fn = getattr(lib, name)
+            fn.argtypes = [_I64, _I64]
+            fn.restype = _I64
         _lib = lib
     return _lib
 

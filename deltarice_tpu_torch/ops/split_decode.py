@@ -1,6 +1,8 @@
 """Speculative split decode: intra-segment decode parallelism for batches of
-few, long segments (NOPTREX 256 x 500,000 leaves 256 threads for the whole
-card on B2) — the port of ``deltarice_tpu/ops/split_decode.py``.
+few, long segments (the JAX package's answer to a decode with one lane per
+segment) — the port of ``deltarice_tpu/ops/split_decode.py``. The port's
+exact B2 is itself parallel inside each segment; this path stays behind
+its switch.
 
 Each segment's word stream is cut into P uniform word ranges that decode
 in parallel threads (B9, :mod:`.split_decode_cuda`). A range p > 0 cannot

@@ -6,7 +6,7 @@ each (segment, part) sub-block decodes its range after a ``halo``-word
 warm-up at bit phase 0 and reports what :func:`.split_decode._compose_merge`
 needs to prove and stitch the pieces: entry and exit cursor phases, local
 sample count and final delta state. Layout: ``words_t`` is (W, nseg)
-word-major, as B2 takes it.
+word-major (B4 makes it from the codec's segment-major words).
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """B4: 2-D transpose (A, B) -> (B, A) — CUDA kernel ``csrc/transpose.cu``.
 
-Converts between the codec's segment-major arrays and the sample-major /
-word-major arrays the one-thread-per-segment kernels read and write
-coalesced. Counterpart of ``deltarice_tpu/ops/transpose_pallas.py``.
+Makes the word-major words (W, nseg) that B9 (the split decode) reads
+coalesced from the codec's segment-major words. Counterpart of
+``deltarice_tpu/ops/transpose_pallas.py``.
 """
 
 from __future__ import annotations

@@ -132,15 +132,14 @@ def test_pack_encode_matches_encode_segments_xla(k, cap):
     nv = np.array([500, 0, 1, 499, 250, 500, 33, 500, 500, 64, 500, 7], np.int32)
     p0 = _uniform(1, 12, 4)[0].astype(np.int32)
     cfg = JaxConfig(1 << k, 500)
-    xt = torch.from_numpy(np.ascontiguousarray(x.T))
     for diff, prev0 in [(True, None), (True, p0), (False, None)]:
-        words_t, nwords, nbits = pack_encode(
-            xt, torch.from_numpy(nv),
+        words, nwords, nbits = pack_encode(
+            torch.from_numpy(x), torch.from_numpy(nv),
             None if prev0 is None else torch.from_numpy(prev0), k, diff, cap)
         jw, jn, jb = _encode_segments_xla(
             jnp.asarray(x), jnp.asarray(nv), cfg, cap, "segsum",
             None if prev0 is None else jnp.asarray(prev0), not diff)
-        np.testing.assert_array_equal(_np(words_t).T.view(np.uint32),
+        np.testing.assert_array_equal(_np(words).view(np.uint32),
                                       np.asarray(jw))
         np.testing.assert_array_equal(_np(nwords), np.asarray(jn))
         np.testing.assert_array_equal(_np(nbits), np.asarray(jb))
@@ -157,9 +156,9 @@ def test_unpack_decode_matches_decode_segments_scan(m, filt):
     nv = np.array([400, 400, 17, 400, 0, 400, 399, 400], np.int32)
     jw, jn, _ = _encode_segments_xla(jnp.asarray(x), jnp.asarray(nv), cfg,
                                      cfg.max_words(400) + 1)
-    words = np.asarray(jw)
-    got = unpack_decode(torch.from_numpy(np.ascontiguousarray(words.T).view(np.int32)),
-                        450, cfg.k, cfg.is_delta).t()
+    words = np.array(jw)
+    got = unpack_decode(torch.from_numpy(words.view(np.int32)), 450, cfg.k,
+                        cfg.is_delta)
     if not cfg.is_delta:
         got = prefilter.prefilter_decode(got, filt)
     want = np.asarray(_decode_segments_scan(jnp.asarray(words), 450, cfg))
@@ -206,8 +205,7 @@ def test_concentrate_of_encoder_staging_returns_the_stream():
     lens, _ = rice.codeword_lengths_values(
         rice.zigzag(prefilter.prefilter_encode(x)), 3)
     nv = torch.full((8,), 700, dtype=torch.int32)
-    words_t, nwords, _ = pack_encode(x.t().contiguous(), nv, None, 3, True, 547)
-    words = words_t.t().contiguous()
+    words, nwords, _ = pack_encode(x, nv, None, 3, True, 547)
     lead, follow = staged_planes(lens, words, 1024)
     np.testing.assert_array_equal(
         _np(concentrate_packed((lead, follow), 547, True)), _np(words))
@@ -228,7 +226,7 @@ def test_transpose_plain_matches_numpy(dtype):
 
 
 def test_wrappers_validate_and_refuse_other_devices():
-    xt = torch.zeros((16, 4), dtype=torch.int16)
+    xt = torch.zeros((4, 16), dtype=torch.int16)
     nv = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(TypeError):
         pack_encode(xt.to(torch.int32), nv, None, 3, True, 8)
@@ -237,7 +235,7 @@ def test_wrappers_validate_and_refuse_other_devices():
     with pytest.raises(ValueError):
         pack_encode(xt, nv, None, 16, True, 8)
     with pytest.raises(ValueError):
-        unpack_decode(torch.zeros((0, 4), dtype=torch.int32), 4, 3)
+        unpack_decode(torch.zeros((4, 0), dtype=torch.int32), 4, 3)
     with pytest.raises(ValueError):
         concentrate_packed((torch.zeros((2, 4), dtype=torch.int32),), 4, True)
     # a device that is neither the card nor the CPU has no plain fallback
@@ -288,14 +286,14 @@ def test_pack_plain_covers_the_jax_encode_rates(pallas_interpret, rate):
     mw = RiceConfig(1 << k).max_words(length)
     words, nwords, nbits, bad = pack_encode_pallas_bits(
         jnp.asarray(x), jnp.asarray(nv), k, mw, True, None, rate)
-    wt, nwt, nbt = pack_encode(torch.from_numpy(np.ascontiguousarray(x.T)),
-                               torch.from_numpy(nv), None, k, True, mw)
+    wt, nwt, nbt = pack_encode(torch.from_numpy(x), torch.from_numpy(nv),
+                               None, k, True, mw)
     bad = np.asarray(bad)
     assert bad[5:].all() and not bad[:5].any()
     np.testing.assert_array_equal(np.asarray(nwords), _np(nwt))
     np.testing.assert_array_equal(np.asarray(nbits), _np(nbt))
     np.testing.assert_array_equal(np.asarray(words).view(np.int32)[~bad],
-                                  _np(wt).T[~bad])
+                                  _np(wt)[~bad])
 
 
 @pytest.mark.parametrize("j,flags", [(2, True), (4, False)])
@@ -307,15 +305,15 @@ def test_unpack_plain_covers_the_jax_service_rates(pallas_interpret, j,
     x = _walk(8, length, 30.0, 3)  # about 2.6 codeword starts per word
     x[4:] = _walk(4, length, 60.0, 4)  # under 2
     cap = RiceConfig(1 << k).max_words(length) + 1
-    wt, nwt, _ = pack_encode(torch.from_numpy(np.ascontiguousarray(x.T)),
+    wt, nwt, _ = pack_encode(torch.from_numpy(x),
                              torch.full((8,), length, dtype=torch.int32),
                              None, k, True, cap)
     starts = length / _np(nwt)
     assert (starts[:4] > 2).all() and (starts < 4).all()
-    words = np.ascontiguousarray(_np(wt).T).view(np.uint32)
+    words = _np(wt).view(np.uint32)
     out, bad = unpack_decode_pallas(jnp.asarray(words), length, k, True,
                                     True, j)
-    plain = _np(unpack_decode(wt, length, k, True)).T
+    plain = _np(unpack_decode(wt, length, k, True))
     bad = np.asarray(bad)
     assert bad.any() == flags and not bad.all()
     np.testing.assert_array_equal(plain, x)
