@@ -20,12 +20,16 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    of (32, 81920)) and NOPTREX (256 x 500000, M=8, as 8 chunks of
    (32, 500000)): the sub-block split encode with its device merge (B3 for
    nEDM, B5 for NOPTREX), the exact decode (B2) with the split switch off
-   and the speculative split decode (B4 + B9 + B6) with it on; every
-   stream must equal native ``dr_compress``, every chunk must decode
-   exactly both ways and through native ``dr_decompress``, and each kernel
-   of the path must have launched;
-6. holds B5, B6 and B9 against their plain versions on the inputs the
+   and the speculative split decode (B9 + B6) with it on; every stream
+   must equal native ``dr_compress``, every chunk must decode exactly both
+   ways and through native ``dr_decompress``, the split decode must flag
+   the segments it flagged before (nEDM 3, NOPTREX 98), and each kernel of
+   the path must have launched;
+6. holds B3, B5, B6 and B9 against their plain versions on the inputs the
    long-segment path gave them (B9's plain loop on its first 64 segments),
+   times B9's passes with one ``torch.profiler`` repeat of launches
+   stopped after each pass and splits the split decode layer's device
+   time into B9, B6 and the merge's torch glue,
    B1 at the NOPTREX split's sub-row shape and B2 at one NOPTREX h5
    bucket's shape (64 segments; its plain version there is the plain model
    of its tiled passes, ``ops/tiled_model.py``), and B7 (nEDM) and B8
@@ -45,11 +49,13 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
 9. runs ``optimize`` over the whole Nab dataset on the card (and on its
    first 64 rows against ``device="cpu"``), then the CLI's ``warmup`` and
    ``install-plugin`` as subprocesses;
-10. prints a JSON line of the kernels — each row with its launches on the
-   path, its time, its plain version's, the one-call PyTorch yardstick's
-   where there is one, and its bound: the bytes its inputs need and its
-   outputs take over the H100's 3.35 TB/s — then the JSON ``ok`` line
-   last.
+10. checks that no counted window launched B4 (every codec kernel reads
+   segment-major arrays), then prints a JSON line of the kernels — each
+   row with its launches on the path, its time, its plain version's, the
+   one-call PyTorch yardstick's where there is one, and its bound: the
+   bytes its inputs need and its outputs take over the H100's 3.35 TB/s;
+   B3 has a row at the Nab staging and one at the nEDM merge — then the
+   JSON ``ok`` line last.
 
 Each phase prints its seconds. Any failed phase exits nonzero before the
 ``ok`` line. Without a CUDA card, or outside a checkout of the repository,
@@ -75,6 +81,10 @@ GOLDEN = ROOT / "tests" / "data" / "golden"
 ROWS, LENGTH, CHUNK_ROWS = 2048, 7000, 32
 LONG = {"nedm": 1024, "noptrex": 256}  # waveforms of each long profile
 B9_PLAIN_SEGMENTS = 64  # segments B9's plain loop decodes on the card
+B9_PASSES = ("staging", "A (phase-0 walks)", "B (joins, resolve)",
+             "C (decode, stores, zeros)")
+# segments the split decode flags for an exact re-decode (data of seed 0)
+FLAGGED = {"nedm": 3, "noptrex": 98}
 # the HDF5 phase: rows of each dataset and chunks per window (4 windows)
 H5_ROWS = {"nab": 2000, "nedm": 1024, "noptrex": 256}
 H5_WINDOW = {"nab": 16, "nedm": 8, "noptrex": 2}
@@ -448,12 +458,13 @@ def phase_long(name: str, x_np) -> tuple[dict, dict]:
               f"{name} chunk {i}: native dr_decompress disagrees")
     merge = "concentrate_packed" if name == "nedm" else "concentrate_wide"
     need = {"encode+decode(off)": ("pack_encode", merge, "unpack_decode"),
-            "decode(on)": ("transpose2d", "split_decode",
-                           "concentrate_wide16")}
+            "decode(on)": ("split_decode", "concentrate_wide16")}
     for window, names in need.items():
         for kernel in names:
             check(windows[window].get(kernel, 0) > 0,
                   f"{name} {window} never launched {kernel}")
+    check(flagged == FLAGGED[name], f"{name}: the split decode flagged "
+          f"{flagged} segments, {FLAGGED[name]} before")
     print(f"[5 long {name}] {len(chunks)} chunks of ({CHUNK_ROWS}, {length})"
           f" M={cfg.m}: encode split P={parts_enc}, split decode P="
           f"{parts_dec}; every stream equals native dr_compress, every chunk"
@@ -521,8 +532,9 @@ def phase_long_kernels(calls_by_path: dict) -> tuple[list, list]:
         split_ms = cuda_ms(lambda: unpack_decode_split(*split), 5)
         print(f"[6 long kernels] decode layer {path}, {b2[0].shape[0]} "
               f"segments of {b2[0].shape[1]} words: B2 {b2_ms:.4f} ms; split "
-              f"P={split[5]} (B9 + merge + B6, after B4) {split_ms:.4f} ms, "
+              f"P={split[5]} (B9 + merge + B6) {split_ms:.4f} ms, "
               f"{int(bad.sum())} segments flagged for B2 re-decode")
+        split_layer_parts(path, split, bad)
         # B7 / B8 on the staging the JAX decode kernel emits for the bucket
         words, n_samples, k = b2[:3]
         nseg, w = words.shape
@@ -577,9 +589,9 @@ def phase_long_kernels(calls_by_path: dict) -> tuple[list, list]:
                     list(args[0].shape), list(args[0].shape), path,
                     nbytes(args[0], got))
         for args in calls["split_decode"][:1]:
-            words_t, wv, parts = args[:3]
-            nseg = min(B9_PLAIN_SEGMENTS, words_t.shape[1])
-            sub = (words_t[:, :nseg].contiguous(),
+            words, wv, parts = args[:3]
+            nseg = min(B9_PLAIN_SEGMENTS, words.shape[0])
+            sub = (words[:nseg].contiguous(),
                    wv[: nseg * parts].contiguous(), *args[2:])
             local, meta = split_decode(*args)
             torch.cuda.synchronize()
@@ -593,8 +605,9 @@ def phase_long_kernels(calls_by_path: dict) -> tuple[list, list]:
             moved = 4 * int(wv.to(torch.int64).sum()) + nbytes(local, meta)
             compare("split_decode", err,
                     cuda_ms(lambda: split_decode(*args), 20), plain_ms,
-                    [int(words_t.shape[1]) * parts, args[3]],
+                    [int(words.shape[0]) * parts, args[3]],
                     [nseg * parts, args[3]], path, moved)
+            b9_passes(path, args)
     src = {"concentrate_packed": ("deltarice_tpu_torch/csrc/concentrate.cu",
                                   "deltarice_tpu/ops/concentrate_pallas.py:69"),
            "concentrate_wide": ("deltarice_tpu_torch/csrc/concentrate_wide.cu",
@@ -616,6 +629,72 @@ def phase_long_kernels(calls_by_path: dict) -> tuple[list, list]:
     return ([{"name": k, "route": "cuda", "source": src[k][0],
               "replaces": src[k][1], **v} for k, v in rows.items()],
             phase_long_codec(calls_by_path["noptrex"]))
+
+
+def split_layer_parts(path, split, bad) -> None:
+    """One ``torch.profiler`` repeat of the split decode layer
+    (``unpack_decode_split``): its device ms in B9, in B6 and in the rest
+    (the merge's torch glue and copies), then the B2 re-decode of the
+    segments it flagged, timed with CUDA events."""
+    from deltarice_tpu_torch.ops.split_decode import unpack_decode_split
+    from deltarice_tpu_torch.ops.unpack_cuda import unpack_decode
+    from deltarice_tpu_torch.profile_long import _device_rows
+    from deltarice_tpu_torch.utils.profiling import device_trace
+
+    words, _counts, n_samples, k, delta = split[:5]
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp) as prof:
+            unpack_decode_split(*split)
+            torch.cuda.synchronize()
+    rows = _device_rows(prof)
+    total = sum(v for v, _n, _k in rows)
+    kernels = ("split_decode_kernel", "wide16_kernel")  # B9, B6
+    b9, b6 = (sum(v for v, _n, key in rows if name in key)
+              for name in kernels)
+    rest = sum(n for _v, n, key in rows
+               if not any(name in key for name in kernels))
+    flagged = torch.nonzero(bad.to(words.device)).flatten()
+    redo = words[flagged].contiguous()
+    redo_ms = (cuda_ms(lambda: unpack_decode(redo, n_samples, k, delta), 5)
+               if len(flagged) else 0.0)
+    print(f"[6 long kernels] decode layer {path} parts (torch.profiler, one "
+          f"repeat): device {total:.4f} ms = B9 {b9:.4f} + B6 {b6:.4f} + "
+          f"merge glue and copies {total - b9 - b6:.4f} ({rest} launches); "
+          f"B2 re-decode of the {len(flagged)} flagged segments "
+          f"{redo_ms:.4f} ms")
+
+
+def b9_passes(path, args, reps: int = 5) -> None:
+    """One ``torch.profiler`` repeat of B9 launched whole and stopped after
+    each earlier pass (``split_decode_passes``): the device ms of each
+    launch, and of each pass as the difference of two."""
+    from deltarice_tpu_torch.ops.split_decode_cuda import (
+        PASSES, split_decode_passes)
+    from deltarice_tpu_torch.profile_long import _device_rows
+    from deltarice_tpu_torch.utils.profiling import device_trace
+
+    for passes in range(1, PASSES + 1):  # warm-up
+        split_decode_passes(*args, passes)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp) as prof:
+            for passes in range(1, PASSES + 1):
+                for _ in range(reps):
+                    split_decode_passes(*args, passes)
+            torch.cuda.synchronize()
+    ms = {}
+    for total, n, key in _device_rows(prof):
+        for passes in range(1, PASSES + 1):
+            if f"split_decode_kernel<{passes}>" in key:
+                ms[passes] = total / n
+    check(sorted(ms) == list(range(1, PASSES + 1)),
+          f"the profiler saw B9 launches {sorted(ms)}, not 1..{PASSES}")
+    each = [ms[1]] + [ms[p] - ms[p - 1] for p in range(2, PASSES + 1)]
+    print(f"[6 long kernels] split_decode {path} passes (torch.profiler, "
+          f"{reps} launches each): "
+          + ", ".join(f"{n} {v:.4f} ms" for n, v in zip(B9_PASSES, each))
+          + f"; whole {ms[PASSES]:.4f} ms")
 
 
 def phase_long_codec(calls) -> list[dict]:
@@ -974,12 +1053,16 @@ def run() -> int:
         print(f"[9 tools] {time.perf_counter() - t:.1f} s")
         check("jax" not in sys.modules and "deltarice_tpu" not in sys.modules,
               "the port imported JAX or the JAX package")
+        for path, windows in counted.items():
+            for window, n in windows.items():
+                check(n.get("transpose2d", 0) == 0,
+                      f"{path} {window} launched transpose2d")
+        print("[10 layout] no counted window of phases 4-7 launched B4")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    names = {row["name"] for row in kernels}  # B3 keeps its Nab-shape row
-    rows = (kernels + [r for r in long_rows if r["name"] not in names]
-            + codec_rows)
+    # B1, B2 and B3 have a row at each of two shapes
+    rows = kernels + long_rows + codec_rows
     for row in rows:
         paths = {f"{path} {window}": n[row["name"]]
                  for path, windows in counted.items()

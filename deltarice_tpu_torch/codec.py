@@ -51,7 +51,6 @@ from .ops.pack_cuda import pack_encode
 from .ops.pack_ref import as_i32, as_u32
 from .ops.prefilter import prefilter_decode, prefilter_encode
 from .ops.split_decode import decode_split_parts, unpack_decode_split
-from .ops.transpose_cuda import transpose2d
 from .ops.unpack_cuda import unpack_decode
 
 _WORD_BUCKET = 256  # decode pads segment word counts up to a multiple of this
@@ -107,13 +106,13 @@ def _split_decode_enabled() -> bool:
     return os.environ.get("DELTARICE_TPU_SPLIT_DECODE", "0") == "1"
 
 
-def _decode_device_split(words_t: torch.Tensor, counts, n_samples: int,
+def _decode_device_split(words: torch.Tensor, counts, n_samples: int,
                          cfg: RiceConfig, parts: int, nvalid=None):
-    """Split decode of word-major streams: (samples (nseg, n_samples),
+    """Split decode of segment-major streams: (samples (nseg, n_samples),
     per-segment bad flags), both on the device. Flagged segments re-decode
     exactly through :func:`_redecode_bad_rows`. The generic-FIR inverse
     runs after the merge, as in :func:`decode_segments`."""
-    out, bad = unpack_decode_split(words_t, counts, n_samples, cfg.k,
+    out, bad = unpack_decode_split(words, counts, n_samples, cfg.k,
                                    cfg.is_delta, parts, nvalid)
     if not cfg.is_delta:
         out = prefilter_decode(out, cfg.filt)
@@ -170,8 +169,8 @@ def _decode_dispatch(words, n_samples: int, cfg: RiceConfig, device,
                                    int(np.asarray(counts).max(initial=1)),
                                    cfg.k)
     if parts > 1:
-        return (w, *_decode_device_split(transpose2d(w), counts, n_samples,
-                                         cfg, parts, nvalid))
+        return (w, *_decode_device_split(w, counts, n_samples, cfg, parts,
+                                         nvalid))
     out = unpack_decode(w, n_samples, cfg.k, cfg.is_delta)
     if not cfg.is_delta:
         out = prefilter_decode(out, cfg.filt)
@@ -248,8 +247,7 @@ def _words_hint(x: np.ndarray, cfg: RiceConfig, length: int) -> int:
     """Estimated per-segment output word cap (bucketed) for the encode.
 
     The worst-case bound (25 bits/sample) is 4-5x the typical compressed
-    size; the encoder's output width, and the transpose after it, scale
-    with the cap. This caps the width at a host subsample's largest
+    size; the encoder's output width scales with the cap. This caps the width at a host subsample's largest
     per-row rate plus margin. The kernel's word counts are exact
     regardless, so rows that overflow the cap are detected for free and
     re-encoded at the full bound.

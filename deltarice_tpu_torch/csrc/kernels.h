@@ -6,9 +6,9 @@
  * allocated (outputs that must start zeroed are zeroed by the caller). Each
  * returns cudaGetLastError() after its launch, 0 on success.
  *
- * Layouts are row-major. The codec kernels B1 and B2 take segment-major
- * arrays ((nseg, L) samples, (nseg, W) words), as the codec holds them;
- * B9 reads word-major words (W, nseg), which dr_transpose2d makes.
+ * Layouts are row-major. The codec kernels B1, B2 and B9 take
+ * segment-major arrays ((nseg, L) samples, (nseg, W) words), as the codec
+ * holds them.
  */
 #ifndef DR_KERNELS_H
 #define DR_KERNELS_H
@@ -97,16 +97,18 @@ int dr_concentrate_tiled_vd(const int16_t *values, const int32_t *disp,
                             int64_t lanes, int64_t rows_out, int64_t sb,
                             void *stream);
 
-/* Speculative split decode of words_t (w, nseg) into nseg * parts
+/* Speculative split decode of words (nseg, w) into nseg * parts
  * sub-blocks of wsub words, each warmed up over halo words: row
  * s * parts + p stores its samples at local[row, n] (n < lw; local
- * (rows, lw) int16, zeroed by the caller) and its entry phase, exit
+ * (rows, lw) int16, zero past the row's count) and its entry phase, exit
  * phase, local count and final delta state at meta[0..3][row]. wv
- * (rows,) is each row's owned word count. */
-int dr_split_decode(const int32_t *words_t, const int32_t *wv, int16_t *local,
+ * (rows,) is each row's owned word count. passes = 4 runs the kernel
+ * whole; 1..3 stop after staging, pass A or pass B (only meta is written,
+ * and it is not the result): for timing the passes. */
+int dr_split_decode(const int32_t *words, const int32_t *wv, int16_t *local,
                     int32_t *meta, int64_t w, int64_t nseg, int64_t parts,
                     int64_t wsub, int64_t halo, int64_t lw, int k, int delta,
-                    void *stream);
+                    int passes, void *stream);
 
 #ifdef __cplusplus
 }

@@ -2,9 +2,8 @@
  *
  * Replaces deltarice_tpu/ops/transpose_pallas.py::_tr_kernel (driven by
  * transpose2d). The TPU needed it to move data between segment-major rows
- * and its lane layout; here it makes the word-major words (W, nseg) that
- * B9 (split_decode.cu) reads with coalesced accesses from the codec's
- * segment-major words.
+ * and its lane layout. The port's codec kernels (B1, B2, B9) all read the
+ * codec's segment-major arrays, so no codec path launches it.
  *
  * Bound: device-memory bandwidth (one read and one write of every element,
  * no arithmetic). A naive transpose makes one of the two sides strided; a

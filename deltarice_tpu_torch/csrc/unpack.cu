@@ -14,14 +14,14 @@
  *      starts in a tile starts at bit phase 0..24 of it. For each entry
  *      phase the tile's table holds the exit phase into the next tile, the
  *      number of codewords that start in the tile and the wrapping int16
- *      sum of their values, all with the same dr::rice_decode as B9. One
- *      thread per (segment, tile) walks phase 0 through the whole tile and
- *      records, for each word, where that walk first starts a codeword in
- *      it and its count and sum before that start. Walks from the other
- *      phases resynchronise with it within a few codewords (a decode is a
- *      function of the start bit), so each walks only until it first
- *      starts a word at the same bit as phase 0 did and then takes phase
- *      0's remainder: about one full walk per tile instead of 25.
+ *      sum of their values (the walk, record and join of rice_walk.h, which
+ *      B9 shares). One thread per (segment, tile) walks phase 0 through the
+ *      whole tile and records, for each word, where that walk first starts
+ *      a codeword in it and its count and sum before that start. Walks from
+ *      the other phases resynchronise with it within a few codewords (a
+ *      decode is a function of the start bit), so each walks only until it
+ *      first starts a word at the same bit as phase 0 did and then takes
+ *      phase 0's remainder: about one full walk per tile instead of 25.
  *   2. resolve: the tables are functions of the entry phase and compose
  *      associatively (phases map, counts add, sums add mod 2^16). Groups
  *      of kGroup tables compose into one table per group, level by level,
@@ -50,7 +50,7 @@
 #include <limits.h>
 
 #include "kernels.h"
-#include "rice_decode.h"
+#include "rice_walk.h"
 
 namespace {
 
@@ -74,35 +74,6 @@ __device__ __forceinline__ uint32_t load_word(const uint32_t *__restrict__ row,
   return i < w ? __ldg(row + i) : 0u;
 }
 
-/* Walks the codewords that start in bits [b, lim) of the tile whose first
- * word is row[t0], b < 32: each is handed to visit(value, its bit, the next
- * codeword's bit), which returns false to stop the walk; returns the exit
- * bit (>= lim, < lim + 25). (w0, w1, w2) are the tile's first three words;
- * the window holds the words at and after the cursor's. A codeword is
- * shorter than a word, so the cursor advances by at most one word per
- * codeword and the load of w2 is issued a codeword before it is read. */
-template <class Visit>
-__device__ __forceinline__ int walk_tile(const uint32_t *__restrict__ row,
-                                         int64_t t0, int64_t w, int b,
-                                         int lim, int k, uint32_t w0,
-                                         uint32_t w1, uint32_t w2,
-                                         Visit visit) {
-  int cur = 0;
-  while (b < lim) {
-    int len;
-    const uint32_t u = dr::rice_decode(w0, w1, (unsigned)(b & 31), k, &len);
-    if (!visit(dr::unzigzag(u), b, b + len)) break;
-    b += len;
-    if ((b >> 5) != cur) {
-      ++cur;
-      w0 = w1;
-      w1 = w2;
-      w2 = load_word(row, t0 + cur + 2, w);
-    }
-  }
-  return b;
-}
-
 /* Pass 1: tab[(s * ntiles + t) * kPhases + phase], one thread per
  * (segment, tile). rec[j][thread] = phase 0's first start in word j > 0
  * of the tile: its bit in the word (5 bits), the codewords before it (11
@@ -120,39 +91,18 @@ __global__ void tables_kernel(const uint32_t *__restrict__ words,
   const int64_t t0 = t * kTileWords;
   const int lim = (int)min((int64_t)kTileBits, 32 * (w - 1) - 32 * t0);
   uint2 *out = tab + g * kPhases;
-  uint32_t *mine = &rec[0][threadIdx.x];
   // every phase starts in the tile's first word: its window stays loaded
   const uint32_t a0 = load_word(row, t0, w), a1 = load_word(row, t0 + 1, w),
                  a2 = load_word(row, t0 + 2, w);
-  uint32_t count0 = 0, sum0 = 0;
-  auto record = [&](int32_t v, int at, int next) {
-    ++count0;
-    sum0 += (uint32_t)v;
-    if ((next >> 5) != (at >> 5) && next < lim)  // a word's first start
-      mine[(next >> 5) * kBlock] =
-          ((sum0 & 0xFFFFu) << 16) | (count0 << 5) | (uint32_t)(next & 31);
-    return true;
-  };
-  const int exit0 = walk_tile(row, t0, w, 0, lim, k, a0, a1, a2, record) - lim;
-  out[0] = entry(count0, sum0 & 0xFFFFu, (uint32_t)exit0);
+  const auto load = [row, t0, w](int i) { return load_word(row, t0 + i, w); };
+  uint32_t *mine = &rec[0][threadIdx.x];
+  const dr::Walked p0 =
+      dr::walk_phase0(load, lim, k, a0, a1, a2, mine, kBlock);
+  out[0] = entry(p0.count, p0.sum & 0xFFFFu, p0.exit);
   for (int e = 1; e < kPhases; ++e) {
-    uint32_t count = 0, sum = 0;
-    auto merge = [&](int32_t v, int at, int next) {
-      ++count;
-      sum += (uint32_t)v;
-      if ((next >> 5) != (at >> 5) && next < lim) {
-        const uint32_t r = mine[(next >> 5) * kBlock];
-        if ((r & 31u) == (uint32_t)(next & 31)) {  // phase 0 starts here too
-          count += count0 - ((r >> 5) & 0x7FFu);
-          sum += sum0 - (r >> 16);
-          return false;
-        }
-      }
-      return true;
-    };
-    int b = walk_tile(row, t0, w, e, lim, k, a0, a1, a2, merge);
-    if (b < lim) b = lim + exit0;  // merged with phase 0's walk
-    out[e] = entry(count, sum & 0xFFFFu, (uint32_t)(b - lim));
+    const dr::Walked r =
+        dr::walk_joined(load, e, lim, k, a0, a1, a2, mine, kBlock, p0);
+    out[e] = entry(r.count, r.sum & 0xFFFFu, r.exit);
   }
 }
 
@@ -201,7 +151,7 @@ __global__ void resolve_kernel(const uint2 *__restrict__ tab,
 
 /* Stores consecutive samples of one thread from flat index gi on (out is
  * 8-byte aligned): a group of four aligned samples that the thread fills
- * whole goes out as one 8-byte store, a partial group (a tile's first and
+ * whole goes out as one 8-byte store, a partial group (a run's first and
  * last) sample by sample. acc holds the samples [g0, gi) of the group. */
 struct SampleWriter {
   int16_t *out;
@@ -245,13 +195,14 @@ __global__ void decode_kernel(const uint32_t *__restrict__ words,
   uint32_t run = st.y >> 16;
   SampleWriter wr{out, s * n_samples + first, s * n_samples + first, 0};
   const uint32_t *row = words + s * w;
+  const auto load = [row, t0, w](int i) { return load_word(row, t0 + i, w); };
   auto store = [&](int32_t v, int, int) {
     run = delta ? run + (uint32_t)v : (uint32_t)v;
     wr.put((int16_t)run);
     return wr.gi < stop;
   };
-  walk_tile(row, t0, w, (int)(st.y & 0xFFu), lim, k, load_word(row, t0, w),
-            load_word(row, t0 + 1, w), load_word(row, t0 + 2, w), store);
+  dr::walk_words(load, (int)(st.y & 0xFFu), lim, k, load_word(row, t0, w),
+                 load_word(row, t0 + 1, w), load_word(row, t0 + 2, w), store);
   wr.finish();
 }
 

@@ -48,7 +48,7 @@ _SIGNATURES = {
     "dr_concentrate_tiled_vd": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                                 _P],
     "dr_split_decode": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
-                        _I, _I, _P],
+                        _I, _I, _I, _P],
 }
 
 #: scratch sizes the kernels' wrappers allocate: (length or words, nseg)

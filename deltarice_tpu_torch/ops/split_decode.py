@@ -5,7 +5,7 @@ exact B2 is itself parallel inside each segment; this path stays behind
 its switch.
 
 Each segment's word stream is cut into P uniform word ranges that decode
-in parallel threads (B9, :mod:`.split_decode_cuda`). A range p > 0 cannot
+in parallel warps (B9, :mod:`.split_decode_cuda`). A range p > 0 cannot
 know the bit phase of its first codeword, so it starts ``halo`` words early
 at phase 0 and rides Rice's self-synchronisation. The junction check
 ``entry_p == exit_{p-1}`` then proves, by induction from range 0's known
@@ -118,19 +118,19 @@ def _compose_merge(local: torch.Tensor, ent, ext, nloc, accf, wv2, nv,
     return (((out & 0xFFFF) ^ 0x8000) - 0x8000).to(torch.int16), bad
 
 
-def unpack_decode_split(words_t: torch.Tensor, counts, n_samples: int,
+def unpack_decode_split(words: torch.Tensor, counts, n_samples: int,
                         k: int, delta: bool, parts: int, nvalid=None):
     """Split-decode per-segment Rice streams (see the module docstring).
 
-    words_t: (W, nseg) int32 word-major streams (>= 1 zero pad word per
+    words: (nseg, W) int32 segment-major streams (>= 1 zero pad word per
     stream); counts: (nseg,) true word counts from the header walk;
     nvalid: (nseg,) true sample counts (default ``n_samples`` each).
-    Returns ((nseg, n_samples) int16, (nseg,) bool bad) on ``words_t``'s
+    Returns ((nseg, n_samples) int16, (nseg,) bool bad) on ``words``'
     device; flagged segments' samples are invalid and must be re-decoded
     exactly.
     """
-    nseg = words_t.shape[1]
-    dev = words_t.device
+    nseg = words.shape[0]
+    dev = words.device
     counts = np.asarray(counts, dtype=np.int64)
     wsub = -(-int(counts.max(initial=1)) // parts)
     halo = _halo_words(n_samples / max(float(counts.mean()), 1.0))
@@ -145,7 +145,7 @@ def unpack_decode_split(words_t: torch.Tensor, counts, n_samples: int,
     # stream, and must not wait for this decode's own kernels
     wv2_t = torch.from_numpy(wv2).to(dev)
     nv_t = torch.from_numpy(nv).to(dev)
-    local, meta = split_decode(words_t, wv2_t.reshape(-1), parts, wsub, halo,
+    local, meta = split_decode(words, wv2_t.reshape(-1), parts, wsub, halo,
                                lw, k, delta)
     return _compose_merge(local, *meta, wv2_t, nv_t, n_samples, parts, lw,
                           delta)

@@ -1,8 +1,9 @@
 """B4: 2-D transpose (A, B) -> (B, A) — CUDA kernel ``csrc/transpose.cu``.
 
-Makes the word-major words (W, nseg) that B9 (the split decode) reads
-coalesced from the codec's segment-major words. Counterpart of
-``deltarice_tpu/ops/transpose_pallas.py``.
+Counterpart of ``deltarice_tpu/ops/transpose_pallas.py``. The TPU kernels
+needed it between segment-major rows and their lane layout; the port's
+kernels (B1, B2, B9) all read the codec's segment-major arrays, so no
+codec path calls it.
 """
 
 from __future__ import annotations

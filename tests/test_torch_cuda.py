@@ -38,7 +38,10 @@ from deltarice_tpu_torch.ops.rice import codeword_lengths_values, zigzag
 from deltarice_tpu_torch.ops.prefilter import prefilter_encode
 from deltarice_tpu_torch.ops.transpose_cuda import transpose2d
 from deltarice_tpu_torch.ops.split_decode import _local_width
-from deltarice_tpu_torch.ops.split_decode_cuda import split_decode
+from deltarice_tpu_torch.ops.split_decode_cuda import (
+    split_decode,
+    split_decode_passes,
+)
 from deltarice_tpu_torch.ops.tiled_model import decode_tiled
 from deltarice_tpu_torch.ops.unpack_cuda import unpack_decode, unpack_tables
 
@@ -213,6 +216,48 @@ def test_concentrate_matches_plain(cuda):
     _assert_same(*narrow)
 
 
+def _packed_planes(rows, r, density, seed, gaps=0.0):
+    """Random (lead, follow) planes: live slots with strictly increasing
+    destinations, dead slots INT32_MIN, and, with ``gaps``, that share of
+    the dead slots leaving a column that nothing reaches."""
+    rng = np.random.default_rng(seed)
+    u = rng.random((rows, r))
+    valid = u < density
+    gap = ~valid & (u < density + gaps * (1 - density))
+    dest = np.cumsum(valid, axis=1) - 1 + np.cumsum(gap, axis=1)
+    disp = np.arange(r)[None, :] - dest
+    vals = rng.integers(-2**31, 2**31, (rows, r), dtype=np.int64)
+    lead = np.where(valid, (disp << 16) | ((vals >> 16) & 0xFFFF),
+                    DEAD).astype(np.int32)
+    follow = (((vals & 0xFFFF) ^ 0x8000) - 0x8000).astype(np.int16)
+    return (torch.from_numpy(lead), torch.from_numpy(follow),
+            int(np.where(valid, dest, -1).max()) + 1)
+
+
+@pytest.mark.parametrize("rows,r,density,gaps,extra,offset", [
+    (256, 16384, 0.97, 0.0, 0, 0),    # the nEDM merge: fewer rows than SMs x 2
+    (100, 7168, 0.2, 0.5, 40, 0),     # unreached columns inside and after
+    (64, 7000, 0.5, 0.1, -300, 0),    # destinations past n_out dropped
+    (130, 4099, 0.3, 0.2, 7, 0),      # ragged tile, scalar loads
+    (40, 2048, 0.6, 0.3, 3, 1),       # a base off 16-byte alignment
+])
+def test_concentrate_packed_cases_match_plain(cuda, rows, r, density, gaps,
+                                              extra, offset):
+    lead, follow, n_live = _packed_planes(rows, r, density, r, gaps)
+    n_out = n_live + extra
+
+    def shifted(t):  # the same plane at a base off 16-byte alignment
+        return torch.cat([t.new_zeros(offset), t.flatten()])[offset:].view(
+            t.shape)
+
+    for wide in (True, False):
+        planes = (lead, follow) if wide else (lead,)
+        got, want = _both(lambda *p: concentrate_packed(
+            tuple(map(shifted, p)), n_out, wide), *planes)
+        _assert_same(got, want)
+    assert int((want == 0).sum()) > 0  # some columns nothing reaches
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     xt = torch.zeros((4, 16), dtype=torch.int16, device=cuda)
     nv = torch.zeros(4, dtype=torch.int32, device=cuda)
@@ -316,13 +361,94 @@ def test_split_decode_matches_plain(cuda, k, delta, parts):
     nv = torch.full((8,), length, dtype=torch.int32)
     cap = dt.RiceConfig(1 << k).max_words(length) + 1
     words, nwords, _ = pack_encode(torch.from_numpy(x), nv, None, k, True, cap)
-    words_t = words.t().contiguous()
+    args = _split_args(words, nwords, parts, 24, _local_width(length, parts),
+                       k, delta)
+    _assert_same(*_both(split_decode, *args))
+
+
+def _split_args(words, nwords, parts, halo, lw, k, delta=True):
+    """B9's arguments for segment-major streams: words cut to one zero pad
+    word past the longest, each sub-block's owned words."""
+    words = _cut(words, nwords)
     counts = nwords.to(torch.int64)
     wsub = -(-int(counts.max()) // parts)
     wv = (counts[:, None] - torch.arange(parts) * wsub).clamp(0, wsub)
-    got, want = _both(split_decode, words_t, wv.reshape(-1).to(torch.int32),
-                      parts, wsub, 24, _local_width(length, parts), k, delta)
+    return (words, wv.reshape(-1).to(torch.int32), parts, wsub, halo, lw, k,
+            delta)
+
+
+def _never_sync(rows, length):
+    """1, 0, -1, -2, ...: at k=1 no speculation ever meets the stream."""
+    x = (1 - np.arange(length, dtype=np.int64)).astype(np.int16)
+    return np.broadcast_to(x, (rows, length)).copy()
+
+
+@pytest.mark.parametrize("case", ["never-sync", "wide-window", "short",
+                                  "overrun", "k0", "k15", "noptrex-p32",
+                                  "odd-rows"])
+def test_split_decode_cases_match_plain(cuda, case):
+    """B9 on segment-major words against the serial walk: a stream that
+    never resynchronises (every stretch walked again), windows of several
+    shared-memory stages, sub-blocks owning no words, counts past lw, the
+    extreme k, the NOPTREX shape's 32 parts, and a row count that leaves
+    warps of the last block without a row."""
+    k, parts, halo, lw = 3, 4, 24, None
+    length = 40000 if case == "wide-window" else 16000
+    if case == "never-sync":
+        x, k = _never_sync(4, length), 1
+    elif case == "k15":
+        x, k, parts = _escape_heavy(4, 3000), 15, 2
+    else:
+        rows = {"wide-window": 2, "noptrex-p32": 4, "odd-rows": 3}.get(
+            case, 8)
+        x = get_profile("noptrex").synthetic(rows, seed=1, length=length)
+        if case == "wide-window":
+            parts = 2
+        elif case == "k0":
+            k, x = 0, x // 64
+        elif case == "noptrex-p32":
+            parts, halo = 32, 8
+        elif case == "odd-rows":
+            parts = 3  # 9 rows: the third block of 4 warps holds one
+        elif case == "overrun":
+            lw = 256
+    length = x.shape[1]
+    nv = torch.full((x.shape[0],), length, dtype=torch.int32)
+    if case == "short":
+        nv[::3] = torch.tensor([0, 4000, 9000])[: len(nv[::3])]
+    cap = dt.RiceConfig(1 << k).max_words(length) + 1
+    words, nwords, _ = pack_encode(torch.from_numpy(x), nv, None, k, True,
+                                   cap)
+    lw = _local_width(length, parts) if lw is None else lw
+    args = _split_args(words, nwords, parts, halo, lw, k)
+    got, want = _both(split_decode, *args)
     _assert_same(got, want)
+    if case == "wide-window":
+        assert args[3] > 4 * 512
+    if case == "short":
+        assert int((args[1] == 0).sum()) > 0
+    if case == "overrun":
+        assert int(want[1][2].max()) > lw
+
+
+def test_split_decode_passes_launch(cuda):
+    """The pass-timing launches run (staging, + A, + B) and the whole one
+    equals split_decode."""
+    x = get_profile("noptrex").synthetic(4, seed=2, length=16000)
+    nv = torch.full((4,), 16000, dtype=torch.int32)
+    words, nwords, _ = pack_encode(torch.from_numpy(x), nv, None, 3, True,
+                                   dt.RiceConfig(8).max_words(16000) + 1)
+    args = [a.cuda() if isinstance(a, torch.Tensor) else a
+            for a in _split_args(words, nwords, 8, 8,
+                                 _local_width(16000, 8), 3)]
+    for passes in (1, 2, 3):
+        split_decode_passes(*args, passes)
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError):
+        split_decode_passes(*[a.cpu() if isinstance(a, torch.Tensor) else a
+                              for a in args], 4)
+    _assert_same(split_decode(*args), split_decode(*[
+        a.cpu() if isinstance(a, torch.Tensor) else a for a in args]))
 
 
 def _long_chunk(name):
@@ -350,6 +476,8 @@ def test_long_chunk_round_trip_matches_native(cuda, name, merge, monkeypatch):
     assert all(np.array_equal(b, chunk.ravel()) for b in back)
     assert _kernels.launches["split_decode"] == 1
     assert _kernels.launches["concentrate_wide16"] == 1
+    # B9 reads the codec's segment-major words: no transpose on any path
+    assert _kernels.launches["transpose2d"] == 0
 
 
 def _tiled_planes(nseg, r, density, sb, seed, bias=False):

@@ -345,7 +345,7 @@ def test_split_decode_matches_scan_oracle(k, sigma, parts, rows, total):
     x = _walk((rows, total // rows), sigma, k)
     cfg, jcfg = _cfg((1 << k, length))
     _blob, words, counts, nvalid = _gathered(x, cfg)
-    out, bad = tsplit.unpack_decode_split(_t(words.T), counts, length, k,
+    out, bad = tsplit.unpack_decode_split(_t(words), counts, length, k,
                                           True, parts, nvalid)
     assert not bad.any()
     ref = np.asarray(jcodec._decode_segments_scan(jnp.asarray(words), length,
@@ -379,7 +379,7 @@ def test_split_kernel_matches_jax(seed, length, flagged, monkeypatch):
     plane_t, *jmeta = jsplit._split_kernel_program(
         jnp.asarray(subs), jnp.asarray(wv2.reshape(-1)),
         jnp.asarray(first.reshape(-1)), k, True, halo, j, True)
-    local, meta = split_decode(_t(words.T), torch.from_numpy(wv2.reshape(-1)),
+    local, meta = split_decode(_t(words), torch.from_numpy(wv2.reshape(-1)),
                                parts, wsub, halo, lw, k, True)
     for got, want in zip(meta, jmeta):  # ent, ext, nloc, accf
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -416,7 +416,7 @@ def test_never_sync_stream_flags_and_decompress_recovers(monkeypatch):
     x = _never_sync(2, 20000)
     cfg = dt.RiceConfig(2, 20000)
     blob, words, counts, nvalid = _gathered(x, cfg)
-    _out, bad = tsplit.unpack_decode_split(_t(words.T), counts, 20000, 1,
+    _out, bad = tsplit.unpack_decode_split(_t(words), counts, 20000, 1,
                                            True, 4, nvalid)
     assert bad.all()
     # end to end with the switch on; a two-segment batch is far below the
