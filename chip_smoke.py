@@ -54,8 +54,25 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    row with its launches on the path, its time, its plain version's, the
    one-call PyTorch yardstick's where there is one, and its bound: the
    bytes its inputs need and its outputs take over the H100's 3.35 TB/s;
-   B3 has a row at the Nab staging and one at the nEDM merge — then the
-   JSON ``ok`` line last.
+   B3 has a row at the Nab staging and one at the nEDM merge;
+11. drives the chunk data parallelism (``deltarice_tpu_torch.parallel``):
+   a world of one rank over NCCL (a ``file://`` store) encodes and decodes
+   phase 4's 64 Nab chunks and phase 5's 8 NOPTREX chunks through
+   ``encode_chunks_multihost`` / ``decode_chunks_multihost`` (whole
+   segments, worst-case width, no split) and ``roundtrip_check_step``;
+   every stream must equal native ``dr_compress``, every decode the input,
+   no lossless sample may mismatch, and B1 and B2 must launch; it times the
+   sharded path against ``compress_batch`` / ``decompress_batch`` on the
+   Nab chunks (the one-rank overhead). Then two ranks over gloo share the
+   card through ``python -m deltarice_tpu_torch.examples.sharded_encode``
+   on 64 and 63 Nab chunks (63 pads with an empty chunk): rank 0's streams
+   and decode must be exact, rank 1 gets None, B1 and B2 launch in both
+   ranks, and a lossy round-trip check (filter ``LOSSY_FILTER``) must give
+   both ranks the count one rank gives on the whole batch. Where the
+   machine has several cards, the example runs again over NCCL on 64 and
+   63 chunks, one rank per card (up to 4); this phase's launches join the
+   counted windows;
+   then the JSON line of the kernels and the JSON ``ok`` line last.
 
 Each phase prints its seconds. Any failed phase exits nonzero before the
 ``ok`` line. Without a CUDA card, or outside a checkout of the repository,
@@ -65,6 +82,7 @@ it exits nonzero at once. Imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -95,6 +113,11 @@ REF_C_GBPS = 2.0 / (1.0 / 2.387 + 1.0 / 1.782)  # reference C write/read, hmean
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 OPT_BUCKET = 64  # segments of one NOPTREX h5 decode bucket (2 chunks of 32)
 SPIN_CYCLES = 400_000_000  # phase 8's torch.cuda._sleep: about 0.2 s
+# phase 11: a pre-filter whose inverse divides by 8, so 8x wraps int16 on
+# Nab's largest samples (|x| > 4096) and the round trip loses samples; with
+# filt[0] = 2 Nab's amplitude (at most 4324) would round-trip exactly
+LOSSY_FILTER = (8, -1)
+MAX_WORLD = 4  # ranks of the NCCL run over several cards
 # why no single PyTorch call computes a kernel's function (library_ms null)
 NO_LIBRARY = {
     "pack_encode": "no PyTorch call Rice-codes or bit-packs",
@@ -1008,6 +1031,202 @@ def phase_tools(nab_np) -> None:
               "install-plugin left no plugin file")
 
 
+def phase_multi_device(data: dict) -> dict:
+    """Phase 11: the chunk data parallelism on the card. Returns the
+    launches of each counted window (one per rank)."""
+    import torch.distributed as dist
+
+    from deltarice_tpu_torch import RiceConfig, native
+    from deltarice_tpu_torch.models import get_profile
+    from deltarice_tpu_torch.ops import _kernels
+    from deltarice_tpu_torch.parallel import chunk_mesh, roundtrip_check_step
+    from deltarice_tpu_torch.parallel.multihost import (
+        decode_chunks_multihost, encode_chunks_multihost,
+        initialize_distributed)
+    from deltarice_tpu_torch.parallel.sharded import put_sharded
+
+    windows = {}
+    nab = data["nab"].reshape(-1, CHUNK_ROWS, LENGTH)
+    nab_cfg = get_profile("nab").config
+    lossy = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        initialize_distributed(device="cuda:0", backend="nccl",
+                               init_method=f"file://{tmp}/store", rank=0,
+                               world_size=1)
+        try:
+            mesh = chunk_mesh()
+            check(mesh.group is not None and mesh.comm.type == "cuda",
+                  "the world of one has no NCCL group")
+            torch.cuda.synchronize()
+            _kernels.reset_launches()
+            for name in ("nab", "noptrex"):
+                cfg = get_profile(name).config
+                x = data[name].reshape(-1, CHUNK_ROWS, cfg.waveform_length)
+                streams = encode_chunks_multihost(x, cfg, mesh)
+                back = decode_chunks_multihost(streams, cfg, mesh)
+                nvalid = np.full(x.shape[:2], x.shape[2], np.int32)
+                *_, bad = roundtrip_check_step(
+                    put_sharded(x, mesh), put_sharded(nvalid, mesh), cfg,
+                    mesh, cfg.max_words(x.shape[2]))
+                cd = cfg.to_cd_values()
+                for i, (c, blob) in enumerate(zip(x, streams)):
+                    check(blob == native.native_compress(c, cd),
+                          f"world 1 {name} chunk {i}: stream differs from "
+                          f"native dr_compress")
+                check(np.array_equal(back, x.reshape(len(x), -1)),
+                      f"world 1 {name}: decode differs")
+                check(bad == 0, f"world 1 {name}: {bad} lossless samples "
+                      f"mismatched")
+                print(f"[11 multi-device] world 1 (NCCL) {name}: {len(x)} "
+                      f"chunks of {x.shape[1:]} M={cfg.m}: every stream "
+                      f"equals native dr_compress, decode exact, "
+                      f"round-trip check 0 mismatches")
+            lossy_cfg = RiceConfig(nab_cfg.m, LENGTH, LOSSY_FILTER)
+            for n in (64, 63):
+                nvalid = np.full((n, CHUNK_ROWS), LENGTH, np.int32)
+                lossy[n] = roundtrip_check_step(
+                    put_sharded(nab[:n], mesh), put_sharded(nvalid, mesh),
+                    lossy_cfg, mesh, lossy_cfg.max_words(LENGTH))[2]
+                check(lossy[n] > 0, f"filter {LOSSY_FILTER} lost no sample "
+                      f"of {n} Nab chunks")
+            torch.cuda.synchronize()
+            windows["world 1 (nccl)"] = dict(_kernels.launches)
+            one_rank_overhead(nab, nab_cfg, mesh)
+        finally:
+            dist.destroy_process_group()
+        print(f"[11 multi-device] world 1 (NCCL): launches "
+              f"{json.dumps(windows['world 1 (nccl)'], sort_keys=True)}; "
+              f"lossy one-rank mismatches {lossy}; "
+              f"{time.perf_counter() - t:.1f} s")
+        src = Path(tmp) / "nab.npy"
+        np.save(src, nab)
+        windows.update(run_ranks(2, "gloo", src, (64, 63), nab, lossy,
+                                 Path(tmp) / "gloo"))
+        cards = torch.cuda.device_count()
+        if cards >= 2:
+            windows.update(run_ranks(min(cards, MAX_WORLD), "nccl", src,
+                                     (64, 63), nab, lossy,
+                                     Path(tmp) / "nccl"))
+        else:
+            print(f"[11 multi-device] NCCL over several cards: not run, "
+                  f"the machine has {cards} card")
+    for window, n in windows.items():
+        for kernel in ("pack_encode", "unpack_decode"):
+            check(n.get(kernel, 0) > 0, f"multi-device {window} never "
+                  f"launched {kernel}")
+        check(n.get("transpose2d", 0) == 0,
+              f"multi-device {window} launched transpose2d")
+    return windows
+
+
+def one_rank_overhead(nab, cfg, mesh) -> None:
+    """The sharded path on a world of one against ``compress_batch`` /
+    ``decompress_batch`` on the same 64 Nab chunks: host clock around
+    synchronised calls, one warm-up each, then turns of 3 calls (sharded,
+    batch, batch, sharded)."""
+    import deltarice_tpu_torch as dt
+    from deltarice_tpu_torch.parallel.multihost import (
+        decode_chunks_multihost, encode_chunks_multihost)
+
+    chunks = list(nab)
+    streams = dt.compress_batch(chunks, cfg, device="cuda")
+    runs = {"sharded encode": lambda: encode_chunks_multihost(nab, cfg, mesh),
+            "compress_batch": lambda: dt.compress_batch(chunks, cfg,
+                                                        device="cuda"),
+            "sharded decode": lambda: decode_chunks_multihost(streams, cfg,
+                                                              mesh),
+            "decompress_batch": lambda: dt.decompress_batch(streams, cfg,
+                                                            device="cuda")}
+    ms = {k: [] for k in runs}
+    for fn in runs.values():
+        fn()
+    for a, b in (("sharded encode", "compress_batch"),
+                 ("sharded decode", "decompress_batch")):
+        for label in (a, b, b, a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                runs[label]()
+            torch.cuda.synchronize()
+            ms[label].append((time.perf_counter() - t0) / 3 * 1e3)
+    raw = nab.nbytes
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    print(f"[11 multi-device] one-rank overhead on {len(chunks)} Nab chunks "
+          f"(host clock, synchronised, 2 turns of 3 calls): "
+          + "; ".join(f"{k} {' '.join(f'{v:.2f}' for v in ms[k])} ms, mean "
+                      f"{mean[k]:.2f} ms = {raw / mean[k] / 1e6:.4f} GB/s"
+                      for k in runs)
+          + f"; sharded / batch: encode "
+          f"{mean['sharded encode'] / mean['compress_batch']:.4f}x, decode "
+          f"{mean['sharded decode'] / mean['decompress_batch']:.4f}x")
+
+
+def run_ranks(world, backend, src, counts, nab, lossy, out) -> dict:
+    """The example over ``world`` ranks (its ``main``, so the ranks spawn
+    from this process); checks rank 0's streams and decode, that the
+    others get None, the lossy mismatch sums and each rank's launches
+    (returned, one window per rank)."""
+    from deltarice_tpu_torch import native
+    from deltarice_tpu_torch.examples import sharded_encode
+    from deltarice_tpu_torch.models import get_profile
+
+    t = time.perf_counter()
+    said = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(said):
+            sharded_encode.main([
+                "--world", str(world), "--backend", backend, "--device",
+                "cuda", "--out", str(out), "--input", str(src),
+                "--chunks", ",".join(map(str, counts)),
+                "--check-filter", ",".join(map(str, LOSSY_FILTER))])
+    except Exception as e:  # a rank failed or hung: report it as a check
+        raise SmokeFailure(f"{world} {backend} ranks failed: {e!r}") from e
+    reports = [json.loads((out / f"rank{r}.json").read_text())
+               for r in range(world)]
+    cd = get_profile("nab").config.to_cd_values()
+    label = f"world {world} ({backend})"
+    for n in counts:
+        key = str(n)
+        blob = (out / f"streams_{n}.bin").read_bytes()
+        ends = np.cumsum(reports[0]["chunks"][key]["streams"])
+        streams = [blob[a:b] for a, b in zip(np.r_[0, ends[:-1]], ends)]
+        check(len(streams) == n, f"{label}: {len(streams)} streams of {n}")
+        for i, s in enumerate(streams):
+            check(s == native.native_compress(nab[i], cd),
+                  f"{label} {n} chunks: stream {i} differs from native "
+                  f"dr_compress")
+        check(np.array_equal(np.load(out / f"decoded_{n}.npy"),
+                             nab[:n].reshape(n, -1)),
+              f"{label} {n} chunks: decode differs")
+        for r in reports[1:]:
+            check(r["chunks"][key]["streams"] is None
+                  and not r["chunks"][key]["decoded"],
+                  f"{label}: rank {r['rank']} got a result")
+        counts_all = [r["chunks"][key]["mismatches"] for r in reports]
+        check(counts_all == [lossy[n]] * world,
+              f"{label} {n} chunks: lossy mismatches {counts_all}, one rank "
+              f"{lossy[n]}")
+        r0 = reports[0]["chunks"][key]
+        raw = r0["raw_bytes"]
+        print(f"[11 multi-device] {label} {n} chunks: rank 0's streams "
+              f"equal native dr_compress, decode exact, the other ranks got "
+              f"None; lossy mismatches {counts_all} (one rank {lossy[n]}); "
+              f"rank 0 encode {r0['encode_s'] * 1e3:.2f} ms = "
+              f"{raw / r0['encode_s'] / 1e9:.4f} GB/s, decode "
+              f"{r0['decode_s'] * 1e3:.2f} ms = "
+              f"{raw / r0['decode_s'] / 1e9:.4f} GB/s")
+    check(all(r["jax_loaded"] == [] for r in reports),
+          f"{label}: a rank imported JAX")
+    windows = {f"{label} rank {r['rank']}": r["launches"] for r in reports}
+    print(f"[11 multi-device] {label}: devices "
+          f"{[r['device'] for r in reports]}; launches "
+          f"{json.dumps(windows, sort_keys=True)}; "
+          f"{said.getvalue().strip().splitlines()[-1]}; "
+          f"{time.perf_counter() - t:.1f} s")
+    return windows
+
+
 def run() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this run needs one", file=sys.stderr)
@@ -1058,6 +1277,9 @@ def run() -> int:
                 check(n.get("transpose2d", 0) == 0,
                       f"{path} {window} launched transpose2d")
         print("[10 layout] no counted window of phases 4-7 launched B4")
+        t = time.perf_counter()
+        counted["multi-device"] = phase_multi_device(data)
+        print(f"[11 multi-device] {card}; {time.perf_counter() - t:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

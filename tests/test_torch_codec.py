@@ -194,6 +194,10 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import sys, numpy as np, deltarice_tpu_torch as dt\n"
         "from deltarice_tpu_torch import cli, h5, optimize, utils\n"
         "from deltarice_tpu_torch.native import install\n"
+        "from deltarice_tpu_torch import parallel\n"
+        "from deltarice_tpu_torch.parallel import multihost, sharded\n"
+        "import deltarice_tpu_torch.examples.sharded_encode\n"
+        "import deltarice_tpu_torch.native.__main__\n"
         "x = np.arange(300, dtype=np.int16)\n"
         "cfg = dt.RiceConfig(8, 100)\n"
         "assert (dt.decompress(dt.compress(x, cfg, device='cpu'), cfg,"

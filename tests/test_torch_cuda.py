@@ -683,3 +683,67 @@ def test_over_cap_rows_reencode_on_the_collect_stream(cuda, monkeypatch):
                + codec.compress_batch_collect(later, cfg))
     for c, s in zip(chunks, streams):
         assert s == native_compress(c, cfg.to_cd_values())
+
+
+def test_one_rank_nccl_round_trip_matches_native(cuda, tmp_path,
+                                                 monkeypatch):
+    """A world of one over NCCL: the gathers run through the NCCL
+    communicator, B1 and B2 launch, every stream equals native
+    dr_compress and the decode gives the input back."""
+    import torch.distributed as dist
+
+    from deltarice_tpu_torch.parallel import chunk_mesh, roundtrip_check_step
+    from deltarice_tpu_torch.parallel.multihost import (
+        decode_chunks_multihost, encode_chunks_multihost,
+        initialize_distributed)
+    from deltarice_tpu_torch.parallel.sharded import put_sharded
+
+    for var in ("WORLD_SIZE", "MASTER_ADDR", "SLURM_JOB_ID", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    x = _nab(5 * 32).reshape(5, 32, 7000)
+    cfg = dt.RiceConfig(8, 7000)
+    initialize_distributed(device="cuda:0", backend="nccl",
+                           init_method=f"file://{tmp_path / 'store'}",
+                           rank=0, world_size=1)
+    try:
+        mesh = chunk_mesh()
+        assert mesh.group is not None and mesh.comm.type == "cuda"
+        _kernels.reset_launches()
+        streams = encode_chunks_multihost(x, cfg, mesh)
+        back = decode_chunks_multihost(streams, cfg, mesh)
+        nvalid = np.full((5, 32), 7000, np.int32)
+        *_, bad = roundtrip_check_step(put_sharded(x, mesh),
+                                       put_sharded(nvalid, mesh), cfg, mesh,
+                                       cfg.max_words(7000))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    for c, s in zip(x, streams):
+        assert s == native_compress(c, cfg.to_cd_values())
+    np.testing.assert_array_equal(back, x.reshape(5, -1))
+    assert bad == 0
+    for name in ("pack_encode", "unpack_decode"):
+        assert _kernels.launches[name] > 0
+    assert _kernels.launches["transpose2d"] == 0
+
+
+def test_sharded_step_on_the_card_counts_like_the_cpu(cuda):
+    """roundtrip_check_step on the card and on the CPU: the same words up
+    to nwords and the same lossy mismatch count (filter (8, -1) wraps
+    int16 on Nab's largest samples)."""
+    from deltarice_tpu_torch.parallel import chunk_mesh, roundtrip_check_step
+
+    x = _nab(4 * 32).reshape(4, 32, 7000)
+    nvalid = np.full((4, 32), 7000, np.int32)
+    nvalid[-1, -1] = 3000
+    cfg = dt.RiceConfig(8, 7000, (8, -1))
+    width = cfg.max_words(7000)
+    got = roundtrip_check_step(x, nvalid, cfg, chunk_mesh(), width)
+    want = roundtrip_check_step(x, nvalid, cfg, chunk_mesh(device="cpu"),
+                                width)
+    assert got[2] == want[2] > 0
+    np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].numpy())
+    valid = (np.arange(width)[None, None, :]
+             < want[1].numpy()[..., None])
+    np.testing.assert_array_equal(np.where(valid, got[0].cpu().numpy(), 0),
+                                  np.where(valid, want[0].numpy(), 0))
