@@ -92,6 +92,8 @@ def _rank_main(rank: int, args) -> None:
         decode_chunks_multihost(
             _from_root(encode_chunks_multihost(warm, cfg, mesh), mesh), cfg,
             mesh)
+        dist.barrier()
+        _kernels.reset_launches()  # count the counted runs' launches only
         report = {"rank": mesh.rank, "world": mesh.size,
                   "backend": args.backend, "device": str(mesh.device),
                   "chunks": {}}

@@ -33,8 +33,8 @@ from ..codec import (
 from ..config import RiceConfig
 from .sharded import (
     ChunkMesh,
+    _decode_local,
     chunk_mesh,
-    decode_chunks_sharded,
     encode_chunks_sharded,
     rank_device,
 )
@@ -201,8 +201,9 @@ def decode_chunks_multihost(streams, cfg: RiceConfig,
     for j, i in enumerate(range(lo, min(lo + per, nchunks))):
         counts, starts = per_chunk[i]
         gather_segments(bufs[i], counts, starts, bucket, out=words[j])
-    out = _gather_to_root(decode_chunks_sharded(staged, length, cfg, mesh),
-                          mesh)
+    # the bucket's last column is past every count: no device check for it
+    out = _gather_to_root(_decode_local(staged, length, cfg, mesh.device,
+                                        has_pad_word=True), mesh)
     if out is None:
         return None
     return out.reshape(-1, nseg * length)[:nchunks, :total].numpy()

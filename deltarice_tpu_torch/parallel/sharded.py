@@ -34,10 +34,9 @@ class ChunkMesh:
 
     ``device`` runs the codec; ``group`` carries the collectives (None: one
     rank and no collective) and ``comm`` is where their tensors live: the
-    card under NCCL, the host under gloo. ``device_mesh`` is the
-    ``DeviceMesh`` over the default process group when one is up; the
-    codec's device stays separate from it because two gloo ranks may share
-    one card.
+    card under NCCL, the host under gloo. The codec's device stays separate
+    from the ``DeviceMesh`` the group comes from, because two gloo ranks
+    may share one card.
     """
 
     device: torch.device
@@ -45,7 +44,6 @@ class ChunkMesh:
     size: int = 1
     group: "dist.ProcessGroup | None" = None
     comm: torch.device = torch.device("cpu")
-    device_mesh: object = None
 
 
 def rank_device(device=None, rank: int | None = None) -> torch.device:
@@ -68,11 +66,11 @@ def rank_device(device=None, rank: int | None = None) -> torch.device:
     return dev
 
 
-def chunk_mesh(device=None, axis_name: str = CHUNK_AXIS) -> ChunkMesh:
+def chunk_mesh(device=None) -> ChunkMesh:
     """The 1-D chunk mesh of this process.
 
     With a default process group up, a ``DeviceMesh`` over all its ranks
-    (``mesh_dim_names=(axis_name,)``) on the group's device type (``cuda``
+    (``mesh_dim_names=(CHUNK_AXIS,)``) on the group's device type (``cuda``
     for NCCL, ``cpu`` for gloo); without one, a one-rank mesh with no
     collective. ``device`` is the codec's device (:func:`rank_device`)."""
     dev = rank_device(device)
@@ -87,10 +85,9 @@ def chunk_mesh(device=None, axis_name: str = CHUNK_AXIS) -> ChunkMesh:
         raise ValueError(f"NCCL collectives need a CUDA device, not {dev}")
     mesh = DeviceMesh("cuda" if nccl else "cpu",
                       torch.arange(dist.get_world_size()),
-                      mesh_dim_names=(axis_name,))
+                      mesh_dim_names=(CHUNK_AXIS,))
     return ChunkMesh(dev, mesh.get_local_rank(), mesh.size(),
-                     mesh.get_group(), dev if nccl else torch.device("cpu"),
-                     mesh)
+                     mesh.get_group(), dev if nccl else torch.device("cpu"))
 
 
 def _to_device(a, device) -> torch.Tensor:
@@ -131,15 +128,16 @@ def _encode_local(x, nvalid, cfg: RiceConfig, max_words: int, device):
 
 
 def _decode_local(words, n_samples: int, cfg: RiceConfig, device,
-                  j_eff: int | None = None):
+                  j_eff: int | None = None, has_pad_word: bool = False):
     """Decode a local (c, s, W) batch through :func:`decode_segments` (B2,
-    exact; never the split decode). A zero word column is appended when the
-    last one holds bits, since B2 needs a zero pad word past each stream.
+    exact; never the split decode). B2 needs a zero pad word past each
+    stream: unless the caller knows the last column is one
+    (``has_pad_word``), a zero column is appended when it holds bits.
     With ``j_eff`` an all-false (c, s) flag plane comes back too: B2 is exact
     at every rate, so nothing is ever flagged for a re-decode."""
     c, s, w = words.shape
     flat = _to_device(words, device).reshape(c * s, w)
-    if w == 0 or bool(flat[:, -1].any()):
+    if not has_pad_word and (w == 0 or bool(flat[:, -1].any())):
         flat = torch.nn.functional.pad(flat, (0, 1))
     out = decode_segments(flat, n_samples, cfg, device)
     out = out.reshape(c, s, n_samples)

@@ -251,7 +251,7 @@ def test_a_world_of_one_sums_through_the_group(gloo_world_of_one):
     results."""
     mesh = gloo_world_of_one
     assert mesh.group is not None and mesh.size == 1 and mesh.rank == 0
-    assert mesh.device_mesh.mesh_dim_names == ("chunks",)
+    assert mesh.group.size() == 1 and mesh.comm == CPU
     x = _walk((3, 2, 192), 21, sigma=1000.0)
     nvalid = np.full((3, 2), 192, np.int32)
     cfg = dt.RiceConfig(8, 192, (2, -1))
