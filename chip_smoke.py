@@ -35,7 +35,13 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    of its tiled passes, ``ops/tiled_model.py``), and B7 (nEDM) and B8
    (NOPTREX) on the tiled staging the JAX decode kernel emits for the same
    decode buckets, which must concentrate back into the decoded samples
-   (the port's own decode makes no staging, so its path launches neither);
+   (the port's own decode makes no staging, so its path launches neither),
+   with the split of B7's and B8's time (all-dead, all-at-displacement-0
+   and staging inputs, the staging also in one ``torch.profiler`` repeat
+   split into the intermediate's memset, pass 1 and pass 2, and pass 1's
+   stores as the plain model of their walk counts them), B7 in packed and
+   u32-with-follower modes, and a check of their SASS (``cuobjdump``): no
+   call to a division routine;
 7. drives the HDF5 entry point on an in-memory direct-chunk store
    (:class:`MemGroup`; the card's machine has no h5py): ``h5.write_dataset``
    and ``h5.read_dataset`` of Nab 2000 x 7000 in (32, 7000) chunks (the
@@ -511,12 +517,13 @@ def phase_long(name: str, x_np) -> tuple[dict, dict]:
     return windows, calls, streams
 
 
-def phase_long_kernels(calls_by_path: dict) -> tuple[list, list]:
+def phase_long_kernels(calls_by_path: dict, card: str) -> tuple[list, list]:
     """B5, B6 and B9 against their plain versions on the inputs the
     long-segment path gave them (B3 too, at the nEDM merge's shape), and B7
-    and B8 on the JAX decode's staging of the same buckets. B9's shape is
-    (sub-rows, words per sub-row). Returns (their rows, the rows of B1 at
-    the NOPTREX split's sub-row shape and B2 at one NOPTREX h5 bucket's)."""
+    and B8 on the JAX decode's staging of the same buckets, with the split
+    of their time (:func:`tiled_split`). B9's shape is (sub-rows, words per
+    sub-row). Returns (their rows, the rows of B1 at the NOPTREX split's
+    sub-row shape and B2 at one NOPTREX h5 bucket's)."""
     from deltarice_tpu_torch.ops.concentrate_cuda import (
         concentrate_packed, concentrate_packed_plain, concentrate_wide,
         concentrate_wide_plain, concentrate_wide16, concentrate_wide16_plain)
@@ -586,6 +593,8 @@ def phase_long_kernels(calls_by_path: dict) -> tuple[list, list]:
         compare(kernel, err, cuda_ms(run, 20), cuda_ms(run_plain, 3),
                 list(planes[0].shape), list(planes[0].shape), path,
                 nbytes(*planes, got))
+        rows[kernel]["split"] = tiled_split(kernel, path, planes, n_samples,
+                                            sb, mode == "bias", card)
         del planes, got, samples
         for args in calls["concentrate_packed"][:1]:
             got = concentrate_packed(*args)
@@ -649,75 +658,295 @@ def phase_long_kernels(calls_by_path: dict) -> tuple[list, list]:
     for kernel in ("concentrate_wide", "concentrate_wide16", "split_decode",
                    "concentrate_tiled", "concentrate_tiled_vd"):
         check(kernel in rows, f"the long-segment path never called {kernel}")
+    tiled_sass()
     return ([{"name": k, "route": "cuda", "source": src[k][0],
               "replaces": src[k][1], **v} for k, v in rows.items()],
             phase_long_codec(calls_by_path["noptrex"]))
 
 
-def split_layer_parts(path, split, bad) -> None:
-    """One ``torch.profiler`` repeat of the split decode layer
-    (``unpack_decode_split``): its device ms in B9, in B6 and in the rest
-    (the merge's torch glue and copies), then the B2 re-decode of the
-    segments it flagged, timed with CUDA events."""
-    from deltarice_tpu_torch.ops.split_decode import unpack_decode_split
-    from deltarice_tpu_torch.ops.unpack_cuda import unpack_decode
+def profiled_rows(run, names) -> list:
+    """(device ms, count, name) rows of one ``torch.profiler`` repeat of
+    ``run()``, taken again (up to three in all) while a row name holds
+    none of some ``names``. A trace late in this script has lost every
+    launch of one kernel of ``run()`` while it kept the copies and kernels
+    around it (B9 in the NOPTREX split layer), or its first launches (B9
+    in :func:`b9_passes`); the cause is not known. So ``run()`` launches
+    each kernel more than once, :func:`per_call` takes a kernel's time
+    from the launches a trace kept, and a kernel that every repeat lost
+    is printed as not measured."""
     from deltarice_tpu_torch.profile_long import _device_rows
     from deltarice_tpu_torch.utils.profiling import device_trace
 
+    for _attempt in range(3):
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            with device_trace(tmp) as prof:
+                run()
+                torch.cuda.synchronize()
+        rows = _device_rows(prof)
+        if all(any(holds(key, name) for _t, _n, key in rows)
+               for name in names):
+            break
+    return rows
+
+
+def holds(key: str, name: str) -> bool:
+    return name.lower() in key.lower()
+
+
+def per_call(rows, name, launches: float):
+    """Device ms per call of the kernel whose row names hold ``name``: its
+    mean over the launches the trace kept, times its ``launches`` per
+    call; None where the trace kept none."""
+    kept = [(t, n) for t, n, key in rows if holds(key, name)]
+    seen = sum(n for _t, n in kept)
+    return sum(t for t, _n in kept) / seen * launches if seen else None
+
+
+def ms_text(v) -> str:
+    return "not measured (the trace lost it)" if v is None else f"{v:.4f} ms"
+
+
+def tiled_parts(fn, reps: int = 5) -> dict:
+    """Device ms per call of ``fn`` (one B7 or B8 call) in one
+    ``torch.profiler`` repeat of ``reps`` calls: the memset of the
+    intermediate, pass 1 (``walk_kernel``), pass 2 (``untile_kernel``),
+    one launch each per call, and the rest; None for a part the trace
+    lost."""
+    names = {"memset": "memset", "pass 1": "walk_kernel",
+             "pass 2": "untile_kernel"}
+    rows = profiled_rows(lambda: [fn() for _ in range(reps)], names.values())
+    parts = {part: per_call(rows, name, 1) for part, name in names.items()}
+    parts["rest"] = sum(t for t, _n, key in rows
+                        if not any(holds(key, n) for n in names.values())) / reps
+    return parts
+
+
+def tiled_split(kernel, path, staging, n_out, sb, bias, card) -> dict:
+    """What B7 or B8 waits on, at the shape of the staging it was just held
+    on: the wrapper's time on (a) all-dead planes (the reads, the memset of
+    the intermediate and pass 2; pass 1 stores nothing), (b) every slot
+    live at displacement 0 with non-zero halfwords (every pass-1 store one
+    aligned run of 32 slots) and (c) the JAX decode staging, (c) also in
+    one ``torch.profiler`` repeat (:func:`tiled_parts`); pass 1's store
+    instructions and the 32-byte sectors they touch, counted by the plain
+    model of the walk on the card (which must give the kernels' output);
+    for B7, also packed int16 and u32-with-follower planes of random
+    monotone rows at the same shape. Each input must give its plain
+    version's output exactly. The counts and the read bound are printed;
+    the returned row holds only what this run timed, each time with its
+    bound."""
+    from deltarice_tpu_torch.ops.concentrate_cuda import DEAD
+    from deltarice_tpu_torch.ops.concentrate_tiled_cuda import (
+        concentrate_tiled, concentrate_tiled_plain, concentrate_tiled_vd,
+        concentrate_tiled_vd_plain)
+    from deltarice_tpu_torch.ops.concentrate_tiled_model import (
+        concentrate_tiled_model, concentrate_tiled_vd_model)
+
+    shape = staging[0].shape
+    dev = staging[0].device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    half = torch.randint(1, 1 << 16, shape, generator=gen, device=dev,
+                         dtype=torch.int32)
+    if kernel == "concentrate_tiled_vd":
+        def run(p):
+            return concentrate_tiled_vd(*p, n_out, sb)
+
+        def plain(p):
+            return concentrate_tiled_vd_plain(*p, n_out, sb)
+
+        def model(p):
+            return concentrate_tiled_vd_model(*p, n_out, sb)
+
+        inputs = {
+            "a all dead": (torch.zeros(shape, dtype=torch.int16, device=dev),
+                           torch.full(shape, -1, dtype=torch.int32,
+                                      device=dev)),
+            "b all home": (half.to(torch.int16),
+                           torch.zeros(shape, dtype=torch.int32, device=dev)),
+        }
+    else:
+        def run(p, emit="int16", bias=bias):
+            return concentrate_tiled(p, n_out, sb, emit, bias)
+
+        def plain(p, emit="int16", bias=bias):
+            return concentrate_tiled_plain(p, n_out, sb, emit, bias)
+
+        def model(p):
+            return concentrate_tiled_model(p, n_out, sb, bias=bias)
+
+        # the biased image of a live halfword at displacement 0 is
+        # INT32_MIN + halfword
+        inputs = {
+            "a all dead": (torch.full(shape, DEAD, dtype=torch.int32,
+                                      device=dev),),
+            "b all home": (half + DEAD if bias else half,),
+        }
+    inputs["c decode staging"] = staging
+    del half
+    ms, stats = {}, {}
+    for name, p in inputs.items():
+        got = run(p)
+        check(max_err(got, plain(p)) == 0,
+              f"{kernel} ({path}, {name}) disagrees with its plain version")
+        want, stats[name] = model(p)
+        check(torch.equal(got, want),
+              f"{kernel} ({path}, {name}) disagrees with the model of its walk")
+        out_bytes = nbytes(got)
+        del got, want
+        torch.cuda.empty_cache()
+        ms[name] = cuda_ms(lambda: run(p), 20)
+    parts = tiled_parts(lambda: run(staging))
+    reads = nbytes(*staging)
+    print(f"[6 long kernels] split {kernel} {path} {list(shape)}, {card}: "
+          + "; ".join(f"({k}) {v:.4f} ms" for k, v in ms.items())
+          + f"; bound {bound_ms(reads + out_bytes):.4f} ms, of which reads "
+          f"{bound_ms(reads):.4f} and the output {bound_ms(out_bytes):.4f}")
+    print(f"[6 long kernels] split {kernel} {path} (c) in torch.profiler, "
+          "5 repeats: " + ", ".join(f"{k} {ms_text(v)}"
+                                    for k, v in parts.items()))
+    for name, st in stats.items():
+        print(f"[6 long kernels] split {kernel} {path} ({name}) pass-1 "
+              f"stores (plain model of the walk, a count): {json.dumps(st)}")
+    bound = bound_ms(reads + out_bytes)
+    split = {name: {"ms": v, "bound_ms": bound} for name, v in ms.items()}
+    split["c decode staging"]["profiler_ms"] = parts
+    if kernel == "concentrate_tiled":
+        split["modes"] = tiled_modes(shape, dev, n_out, sb, run, plain, card)
+    return split
+
+
+def tiled_modes(shape, dev, n_out, sb, run, plain, card) -> dict:
+    """B7 at the staging's shape in packed int16 and u32-with-follower
+    modes: random monotone rows, each slot live with the chance that puts
+    ``n_out`` live slots in a row, random halfwords and followers."""
+    from deltarice_tpu_torch.ops.concentrate_cuda import DEAD
+
+    blocks, rows_in, lanes = shape
+    r, cols = rows_in // sb, sb * lanes
+    gen = torch.Generator(device=dev).manual_seed(8)
+    valid = torch.rand((blocks, r, cols), generator=gen, device=dev) < (
+        n_out / r)
+    disp = (torch.arange(r, device=dev, dtype=torch.int32)[None, :, None]
+            - (torch.cumsum(valid, 1, dtype=torch.int32) - 1))
+    check(int(disp[valid].max()) < (1 << 15),
+          "a random monotone row's displacement exceeds the packed field")
+    half = torch.randint(0, 1 << 16, disp.shape, generator=gen, device=dev,
+                         dtype=torch.int32)
+    lead = torch.where(valid, (disp << 16) | half, DEAD).reshape(shape)
+    follow = torch.randint(-2**15, 2**15, shape, generator=gen, device=dev,
+                           dtype=torch.int16)
+    del valid, disp, half
+    out = {}
+    for mode, planes, emit in (("packed int16", (lead,), "int16"),
+                               ("u32 with follower", (lead, follow), "u32")):
+        got = run(planes, emit, False)
+        check(max_err(got, plain(planes, emit, False)) == 0,
+              f"concentrate_tiled ({mode}) disagrees with its plain version")
+        ms = cuda_ms(lambda: run(planes, emit, False), 20)
+        bound = bound_ms(nbytes(*planes, got))
+        print(f"[6 long kernels] concentrate_tiled {mode} {list(shape)}, "
+              f"random monotone rows, {card}: {ms:.4f} ms, bound "
+              f"{bound:.4f} ms")
+        out[mode] = {"ms": ms, "bound_ms": bound}
+        del got
+    return out
+
+
+def tiled_sass() -> None:
+    """``cuobjdump -sass`` of the kernels' library: B7's and B8's kernels
+    (the memset aside, ``walk_kernel`` and ``untile_kernel`` of
+    ``csrc/concentrate_tiled.cu``) must call no routine (a 64-bit division
+    or modulo is one)."""
+    import shutil
+
+    from deltarice_tpu_torch.ops import _kernels
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).is_file():
+        print("[6 long kernels] SASS: cuobjdump not found, not checked")
+        return
+    res = subprocess.run([tool, "-sass", str(_kernels.build())],
+                         capture_output=True, text=True, timeout=300)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr.strip()}")
+    funcs, name = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    tiled = {n: body for n, body in funcs.items() if "tiled_" in n}
+    check(len(tiled) > 0, "cuobjdump shows no B7 or B8 kernel")
+    calls = {n: sum("CALL" in ln for ln in body) for n, body in tiled.items()}
+    check(not any(calls.values()),
+          f"a B7/B8 kernel calls a routine: {calls}")
+    rcp = sorted({sum("MUFU.RCP" in ln for ln in b) for b in tiled.values()})
+    print(f"[6 long kernels] SASS: {len(tiled)} B7/B8 kernels, no CALL in "
+          f"any; MUFU.RCP (a 32-bit division's reciprocal) per kernel "
+          f"{rcp}; instructions per kernel "
+          f"{sorted({sum(';' in ln for ln in b) for b in tiled.values()})}")
+
+
+def split_layer_parts(path, split, bad, reps: int = 3) -> None:
+    """One ``torch.profiler`` repeat of ``reps`` calls of the split decode
+    layer (``unpack_decode_split``): its device ms per call in B9 and in
+    B6 (:func:`per_call`, with their launches per call counted on a
+    call before) and in the rest (the merge's torch glue and copies), then
+    the B2 re-decode of the segments it flagged, timed with CUDA events."""
+    from deltarice_tpu_torch.ops import _kernels
+    from deltarice_tpu_torch.ops.split_decode import unpack_decode_split
+    from deltarice_tpu_torch.ops.unpack_cuda import unpack_decode
+
     words, _counts, n_samples, k, delta = split[:5]
-    torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        with device_trace(tmp) as prof:
-            unpack_decode_split(*split)
-            torch.cuda.synchronize()
-    rows = _device_rows(prof)
-    total = sum(v for v, _n, _k in rows)
-    kernels = ("split_decode_kernel", "wide16_kernel")  # B9, B6
-    b9, b6 = (sum(v for v, _n, key in rows if name in key)
-              for name in kernels)
-    rest = sum(n for _v, n, key in rows
-               if not any(name in key for name in kernels))
+    kernels = {"B9": ("split_decode_kernel", "split_decode"),
+               "B6": ("wide16_kernel", "concentrate_wide16")}
+    before = _kernels.launches.copy()
+    unpack_decode_split(*split)
+    per = {w: _kernels.launches[w] - before[w] for _n, w in kernels.values()}
+    rows = profiled_rows(lambda: [unpack_decode_split(*split)
+                                  for _ in range(reps)],
+                         [name for name, _w in kernels.values()])
+    ms = {label: per_call(rows, name, per[wrapper])
+          for label, (name, wrapper) in kernels.items()}
+    rest = [(t, n) for t, n, key in rows
+            if not any(holds(key, name) for name, _w in kernels.values())]
+    rest_ms = sum(t for t, _n in rest) / reps
+    total = None if None in ms.values() else sum(ms.values()) + rest_ms
     flagged = torch.nonzero(bad.to(words.device)).flatten()
     redo = words[flagged].contiguous()
     redo_ms = (cuda_ms(lambda: unpack_decode(redo, n_samples, k, delta), 5)
                if len(flagged) else 0.0)
-    print(f"[6 long kernels] decode layer {path} parts (torch.profiler, one "
-          f"repeat): device {total:.4f} ms = B9 {b9:.4f} + B6 {b6:.4f} + "
-          f"merge glue and copies {total - b9 - b6:.4f} ({rest} launches); "
-          f"B2 re-decode of the {len(flagged)} flagged segments "
+    print(f"[6 long kernels] decode layer {path} parts (torch.profiler, "
+          f"{reps} calls, per call): device {ms_text(total)} = B9 "
+          f"{ms_text(ms['B9'])} + B6 {ms_text(ms['B6'])} + merge glue and "
+          f"copies {rest_ms:.4f} ms ({sum(n for _t, n in rest) / reps:g} "
+          f"launches); B2 re-decode of the {len(flagged)} flagged segments "
           f"{redo_ms:.4f} ms")
 
 
 def b9_passes(path, args, reps: int = 5) -> None:
     """One ``torch.profiler`` repeat of B9 launched whole and stopped after
-    each earlier pass (``split_decode_passes``): the device ms of each
-    launch, and of each pass as the difference of two."""
+    each earlier pass (``split_decode_passes``), ``reps`` launches each:
+    the device ms of each launch (:func:`per_call`), and of each pass as
+    the difference of two."""
     from deltarice_tpu_torch.ops.split_decode_cuda import (
         PASSES, split_decode_passes)
-    from deltarice_tpu_torch.profile_long import _device_rows
-    from deltarice_tpu_torch.utils.profiling import device_trace
 
     for passes in range(1, PASSES + 1):  # warm-up
         split_decode_passes(*args, passes)
-    torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        with device_trace(tmp) as prof:
-            for passes in range(1, PASSES + 1):
-                for _ in range(reps):
-                    split_decode_passes(*args, passes)
-            torch.cuda.synchronize()
-    ms = {}
-    for total, n, key in _device_rows(prof):
-        for passes in range(1, PASSES + 1):
-            if f"split_decode_kernel<{passes}>" in key:
-                ms[passes] = total / n
-    check(sorted(ms) == list(range(1, PASSES + 1)),
-          f"the profiler saw B9 launches {sorted(ms)}, not 1..{PASSES}")
-    each = [ms[1]] + [ms[p] - ms[p - 1] for p in range(2, PASSES + 1)]
+    names = [f"split_decode_kernel<{p}>" for p in range(1, PASSES + 1)]
+    rows = profiled_rows(
+        lambda: [split_decode_passes(*args, passes)
+                 for passes in range(1, PASSES + 1) for _ in range(reps)],
+        names)
+    ms = [per_call(rows, name, 1) for name in names]
+    each = [ms[0]] + [None if None in (a, b) else b - a
+                      for a, b in zip(ms, ms[1:])]
     print(f"[6 long kernels] split_decode {path} passes (torch.profiler, "
           f"{reps} launches each): "
-          + ", ".join(f"{n} {v:.4f} ms" for n, v in zip(B9_PASSES, each))
-          + f"; whole {ms[PASSES]:.4f} ms")
+          + ", ".join(f"{n} {ms_text(v)}" for n, v in zip(B9_PASSES, each))
+          + f"; whole {ms_text(ms[-1])}")
 
 
 def phase_long_codec(calls) -> list[dict]:
@@ -1257,7 +1486,7 @@ def run() -> int:
             counted[name], calls[name], streams[name] = phase_long(
                 name, data[name])
         t = time.perf_counter()
-        long_rows, codec_rows = phase_long_kernels(calls)
+        long_rows, codec_rows = phase_long_kernels(calls, card)
         print(f"[6 long kernels] {time.perf_counter() - t:.1f} s")
         del calls
         for name in H5_ROWS:

@@ -82,20 +82,28 @@ int dr_concentrate_wide16(const int32_t *plane, int32_t *out, int64_t rows,
  * disp << 16 | halfword (dead INT32_MIN, disp < 2^15), follow (may be NULL)
  * the low halfword; mode 1: lead is ((disp << 16) | halfword) ^ 2^31 (dead
  * INT32_MIN, follow NULL). Live slot j lands at slot j - disp of out
- * (blocks, rows_out, lanes), zeroed by the caller: int16 halfwords, or with
- * emit_u32 int32 words (hi << 16 | lo with a follower, else the halfword
- * zero-extended). Destinations at or past rows_out / sb are dropped. */
+ * (blocks, rows_out, lanes), every element written: int16 halfwords, or
+ * with emit_u32 int32 words (hi << 16 | lo with a follower, else the
+ * halfword zero-extended); slots nothing reaches are 0, destinations at or
+ * past rows_out / sb are dropped. work: the caller's scratch, 16-byte
+ * aligned, blocks * sb * lanes * work stride elements of out's type (the
+ * stride: rows_out / sb padded to an odd number of 64s). The planes are
+ * read 16 bytes at a time where sb * lanes is a multiple of 8 and both
+ * start on a 16-byte boundary, else one element at a time. rows_in * lanes,
+ * rows_out * lanes and the scratch of one block below 2^31; blocks at most
+ * 65535, else cudaErrorInvalidValue. */
 int dr_concentrate_tiled(const int32_t *lead, const int16_t *follow,
                          void *out, int64_t blocks, int64_t rows_in,
                          int64_t lanes, int64_t rows_out, int64_t sb, int mode,
-                         int emit_u32, void *stream);
+                         int emit_u32, void *work, void *stream);
 
 /* The same layout with explicit planes: values int16, disp int32 (>= 0
- * live, negative dead), out int16 (blocks, rows_out, lanes). */
+ * live, negative dead), out int16 (blocks, rows_out, lanes), work and the
+ * loads as above. */
 int dr_concentrate_tiled_vd(const int16_t *values, const int32_t *disp,
                             int16_t *out, int64_t blocks, int64_t rows_in,
                             int64_t lanes, int64_t rows_out, int64_t sb,
-                            void *stream);
+                            void *work, void *stream);
 
 /* Speculative split decode of words (nseg, w) into nseg * parts
  * sub-blocks of wsub words, each warmed up over halo words: row

@@ -44,9 +44,9 @@ _SIGNATURES = {
     "dr_concentrate_wide": [_P, _P, _P, _I64, _I64, _I64, _P],
     "dr_concentrate_wide16": [_P, _P, _I64, _I64, _I64, _P],
     "dr_concentrate_tiled": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I,
-                             _I, _P],
+                             _I, _P, _P],
     "dr_concentrate_tiled_vd": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
-                                _P],
+                                _P, _P],
     "dr_split_decode": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
                         _I, _I, _I, _P],
 }

@@ -18,8 +18,12 @@ index and make no staging, so the codec calls neither; :func:`decode_staging`
 builds the staging the JAX decode kernel would emit, for holding both
 kernels against their plain versions at the long profiles' shapes.
 
-Each kernel is a scatter to ``slot - disp``; each plain version is the TPU
-kernels' butterfly with every pass a shift by ``(1 << b) * sb`` rows.
+Each kernel lands every live slot at ``slot - disp`` in two passes
+through a segment-major intermediate (``csrc/concentrate_tiled.cu``); each
+plain version is the TPU kernels' butterfly with every pass a shift by
+``(1 << b) * sb`` rows. ``ops/concentrate_tiled_model.py`` walks the
+kernels' decomposition (stages of 128 slots x 32 columns, store runs of 32
+slots, the intermediate's offsets, the 64 x 64 tiles back) in plain torch.
 """
 
 from __future__ import annotations
@@ -34,6 +38,13 @@ from .rice import codeword_lengths_values, zigzag
 
 TBLK = 256  # the TPU kernels' slot block: outputs cover whole blocks
 _EMITS = ("int16", "u32")
+TILE = 64  # csrc/concentrate_tiled.cu's pass 2 moves TILE x TILE tiles
+
+
+def work_stride(slots_out: int) -> int:
+    """Elements per row (one column) of the kernels' intermediate: the
+    output slots padded to an odd number of ``TILE``s."""
+    return (-(-slots_out // TILE) | 1) * TILE
 
 
 def out_rows(rows_in: int, n_out: int, sb: int) -> int:
@@ -147,11 +158,13 @@ def concentrate_tiled(planes, n_out: int, sb: int, emit: str = "int16",
         return concentrate_tiled_plain(planes, n_out, sb, emit, bias)
     rows = out_rows(rows_in, n_out, sb)
     dtype = torch.int16 if emit == "int16" else torch.int32
-    out = torch.zeros((blocks, rows, lanes), dtype=dtype, device=lead.device)
+    out = torch.empty((blocks, rows, lanes), dtype=dtype, device=lead.device)
+    work = torch.empty((blocks, sb * lanes, work_stride(rows // sb)),
+                       dtype=dtype, device=lead.device)
     rc = _kernels.library().dr_concentrate_tiled(
         lead.data_ptr(), None if follow is None else follow.data_ptr(),
         out.data_ptr(), blocks, rows_in, lanes, rows, sb, int(bias),
-        int(emit == "u32"), _kernels.stream(),
+        int(emit == "u32"), work.data_ptr(), _kernels.stream(),
     )
     _kernels.check(rc, "concentrate_tiled")
     _kernels.launches["concentrate_tiled"] += 1
@@ -211,11 +224,13 @@ def concentrate_tiled_vd(values: torch.Tensor, disp: torch.Tensor,
     if not _kernels.route(values):
         return concentrate_tiled_vd_plain(values, disp, n_out, sb)
     rows = out_rows(rows_in, n_out, sb)
-    out = torch.zeros((blocks, rows, lanes), dtype=torch.int16,
+    out = torch.empty((blocks, rows, lanes), dtype=torch.int16,
                       device=values.device)
+    work = torch.empty((blocks, sb * lanes, work_stride(rows // sb)),
+                       dtype=torch.int16, device=values.device)
     rc = _kernels.library().dr_concentrate_tiled_vd(
         values.data_ptr(), disp.data_ptr(), out.data_ptr(), blocks, rows_in,
-        lanes, rows, sb, _kernels.stream(),
+        lanes, rows, sb, work.data_ptr(), _kernels.stream(),
     )
     _kernels.check(rc, "concentrate_tiled_vd")
     _kernels.launches["concentrate_tiled_vd"] += 1

@@ -44,6 +44,7 @@ from deltarice_tpu_torch.ops.split_decode_cuda import (
 )
 from deltarice_tpu_torch.ops.tiled_model import decode_tiled
 from deltarice_tpu_torch.ops.unpack_cuda import unpack_decode, unpack_tables
+from tiled_cases import CASES as TILED_CASES, KINDS as TILED_KINDS, planes
 
 pytestmark = pytest.mark.cuda
 
@@ -530,6 +531,40 @@ def test_concentrate_tiled_bias_dead_collision(cuda):
 def test_concentrate_tiled_vd_matches_plain(cuda, nseg, r, density, sb):
     _l, _f, values, disp, n_out = _tiled_planes(nseg, r, density, sb, r)
     _assert_same(*_both(concentrate_tiled_vd, values, disp, n_out, sb))
+
+
+def _tiled_fn(kind, n_out, sb):
+    if kind == "vd":
+        return lambda *p: concentrate_tiled_vd(*p, n_out, sb)
+    emit = "u32" if kind == "u32" else "int16"
+    return lambda *p: concentrate_tiled(p, n_out, sb, emit, kind == "bias")
+
+
+@pytest.mark.parametrize("kind", TILED_KINDS)
+@pytest.mark.parametrize("case", sorted(TILED_CASES))
+def test_concentrate_tiled_edge_cases_match_plain(cuda, case, kind):
+    """B7 and B8 on ``tests/tiled_cases.py``'s edge cases at four times
+    their CPU length: many spans, 16-byte and one-element loads."""
+    ps, _rows, sb, n_out, _lanes = planes(case, kind, scale=4)
+    name = "concentrate_tiled_vd" if kind == "vd" else "concentrate_tiled"
+    _kernels.reset_launches()
+    _assert_same(*_both(_tiled_fn(kind, n_out, sb), *ps))
+    assert _kernels.launches[name] == 1
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` one element past an aligned start."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.flatten()
+    return flat[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("kind", TILED_KINDS)
+def test_concentrate_tiled_misaligned_planes_match_plain(cuda, kind):
+    """Planes that start off a 16-byte boundary take one-element loads."""
+    ps, _rows, sb, n_out, _lanes = planes("ragged", kind, scale=2)
+    ps = tuple(_misaligned(p.cuda()) for p in ps)
+    _assert_same(*_both(_tiled_fn(kind, n_out, sb), *ps))
 
 
 @pytest.mark.parametrize("mode", ["packed", "bias", "vd"])
