@@ -3,14 +3,19 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It builds the CUDA
 kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
-``deltarice_tpu/native/src``, then, in order:
+``deltarice_tpu_torch/native/src``, then, in order:
 
 1. prints the card's name and power limit (nvidia-smi) and the build time;
 2. holds B1-B4 against their plain torch versions (run on a CPU copy of
-   the same inputs) at the Nab path's shapes — 2048 Nab segments of 7000
-   samples, M=8 — exact equality, and times kernel, plain version and
-   (B4) the one PyTorch call that computes the same function on the card
-   with CUDA events;
+   the same inputs, B4's on the card) at the Nab path's shapes — 2048 Nab
+   segments of 7000 samples, M=8 — exact equality, and times kernel and
+   plain version with CUDA events; B4 also at the JAX package's batched
+   shapes of its transpose (``profile_transpose.SHAPES``) and on two edge
+   inputs (a ragged shape, a view off its 16-byte boundary), timed in CUDA
+   graphs warm and cold (rotated over buffer pairs, at least
+   ``profile_transpose.COLD_BYTES`` between reuses) beside its one-call
+   PyTorch yardstick and the card's copy rate, and its SASS checked for
+   128-bit accesses (``cuobjdump``);
 3. round-trips the 8 committed golden vectors with ``device="cuda"``;
 4. drives the Nab path: ``compress_batch`` / ``decompress_batch`` of 64
    Nab chunks of (32, 7000) int16; every stream must equal the native C
@@ -87,10 +92,12 @@ it exits nonzero at once. Imports no JAX.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -212,7 +219,7 @@ def phase_device() -> str:
     return card
 
 
-def phase_kernels(x_np) -> list[dict]:
+def phase_kernels(x_np, card: str) -> list[dict]:
     """Each kernel vs its plain version at the main path's shapes."""
     import deltarice_tpu_torch as dt
     from deltarice_tpu_torch.codec import (
@@ -222,10 +229,9 @@ def phase_kernels(x_np) -> list[dict]:
     from deltarice_tpu_torch.ops.pack_cuda import pack_encode, pack_encode_plain
     from deltarice_tpu_torch.ops.prefilter import prefilter_encode
     from deltarice_tpu_torch.ops.rice import codeword_lengths_values, zigzag
-    from deltarice_tpu_torch.ops.transpose_cuda import (
-        transpose2d, transpose2d_plain)
     from deltarice_tpu_torch.ops.unpack_cuda import (
         unpack_decode, unpack_decode_plain)
+    from deltarice_tpu_torch.utils.profiling import graph_ms
 
     cfg = dt.RiceConfig(8, LENGTH)
     k = cfg.k
@@ -236,34 +242,23 @@ def phase_kernels(x_np) -> list[dict]:
     cap = _words_hint(x_np, cfg, LENGTH)
     rows = []
 
-    def record(name, src, replaces, err, ms, plain_ms, shape, moved,
-               library_ms=None):
-        rows.append(kernel_row(name, src, replaces, err, ms, plain_ms, shape,
-                               moved, library_ms, "nab"))
+    def record(name, src, replaces, err, fn, plain, plain_reps, shape,
+               moved):
+        """The kernel's row: ``fn`` timed by ``cuda_ms`` (20 calls, the
+        wrapper's host cost included, like for like with earlier runs) and
+        in a CUDA graph (its device time alone), then ``plain``."""
+        ms = cuda_ms(fn, 20)
+        plain_ms = cuda_ms(plain, plain_reps)
+        graph = graph_ms([fn])
+        row = kernel_row(name, src, replaces, err, ms, plain_ms, shape,
+                         moved, None, "nab")
+        row["graph_ms"] = graph
+        rows.append(row)
         print(f"[2 kernels] {name} {shape}: max_abs_err {err}, kernel "
-              f"{ms:.4f} ms, plain torch on the card {plain_ms:.4f} ms, "
-              f"bound {bound_ms(moved):.4f} ms"
-              + ("" if library_ms is None
-                 else f", one PyTorch call {library_ms:.4f} ms"))
+              f"{ms:.4f} ms (in a CUDA graph {graph:.4f} ms), plain torch "
+              f"on the card {plain_ms:.4f} ms, bound {bound_ms(moved):.4f} "
+              f"ms")
         check(err == 0, f"{name} disagrees with its plain version")
-
-    # B4 on the int16 samples and on uint32 words; its one-call yardstick
-    # is x.t().contiguous(), which is also its plain version
-    gen = torch.Generator().manual_seed(0)
-    words_u32 = torch.randint(-2**31, 2**31, (ROWS, 1280), generator=gen,
-                              dtype=torch.int64).to(torch.int32).view(torch.uint32)
-    err = 0
-    for a in (x, words_u32):
-        got = transpose2d(a.cuda())
-        torch.cuda.synchronize()
-        want = transpose2d(a)  # CPU copy: the plain version
-        err = max(err, max_err(signed(got), signed(want)))
-    record("transpose2d", "deltarice_tpu_torch/csrc/transpose.cu",
-           "deltarice_tpu/ops/transpose_pallas.py:21", err,
-           cuda_ms(lambda: transpose2d(xc), 20),
-           cuda_ms(lambda: transpose2d_plain(xc), 20),
-           [ROWS, LENGTH], 2 * nbytes(x),
-           cuda_ms(lambda: xc.t().contiguous(), 20))
 
     # B1 at the main path's hint cap, segment-major
     got = pack_encode(xc, nvc, None, k, True, cap)
@@ -273,9 +268,8 @@ def phase_kernels(x_np) -> list[dict]:
     words, nwords, _ = want
     record("pack_encode", "deltarice_tpu_torch/csrc/pack.cu",
            "deltarice_tpu/ops/pack_pallas.py:62", err,
-           cuda_ms(lambda: pack_encode(xc, nvc, None, k, True, cap), 20),
-           cuda_ms(lambda: pack_encode_plain(xc, nvc, None, k, True,
-                                                    cap), 5),
+           lambda: pack_encode(xc, nvc, None, k, True, cap),
+           lambda: pack_encode_plain(xc, nvc, None, k, True, cap), 5,
            [ROWS, LENGTH], pack_bytes(nv, nwords))
 
     # B2 on the framed streams as the decoder gathers them (segment-major,
@@ -294,8 +288,8 @@ def phase_kernels(x_np) -> list[dict]:
     check(torch.equal(want, x), "plain decode does not return the samples")
     record("unpack_decode", "deltarice_tpu_torch/csrc/unpack.cu",
            "deltarice_tpu/ops/unpack_pallas.py:171", err,
-           cuda_ms(lambda: unpack_decode(wtc, LENGTH, k), 20),
-           cuda_ms(lambda: unpack_decode_plain(wtc, LENGTH, k, True), 1),
+           lambda: unpack_decode(wtc, LENGTH, k),
+           lambda: unpack_decode_plain(wtc, LENGTH, k, True), 1,
            [ROWS, int(wt.shape[1])], unpack_bytes(counts, got))
 
     # B3 on TPU-encoder staging: slot = sample index, one live slot per word
@@ -310,12 +304,159 @@ def phase_kernels(x_np) -> list[dict]:
     check(torch.equal(want, words), "plain concentration lost words")
     record("concentrate_packed", "deltarice_tpu_torch/csrc/concentrate.cu",
            "deltarice_tpu/ops/concentrate_pallas.py:69", err,
-           cuda_ms(lambda: concentrate_packed((leadc, followc), cap,
-                                                     True), 20),
-           cuda_ms(lambda: concentrate_packed_plain((leadc, followc),
-                                                           cap, True), 5),
+           lambda: concentrate_packed((leadc, followc), cap, True),
+           lambda: concentrate_packed_plain((leadc, followc), cap, True), 5,
            [ROWS, slots], nbytes(lead, follow, got))
+    # B4 last: its graphs and rotated buffers come after B1-B3's timings
+    del lead, follow, leadc, followc, got, want
+    rows += b4_rows(x, card)
     return rows
+
+
+def b4_rows(x, card: str) -> list[dict]:
+    """B4 at each of ``profile_transpose.SHAPES`` (the Nab samples ``x``, then
+    seeded random data made on the card): equal to its plain version, the
+    edge inputs too, then its bound and its times: warm (one buffer pair,
+    CUDA graph; and the host loop of ``cuda_ms``, the wrapper's cost
+    included), cold (CUDA graph over enough buffer pairs that at least
+    ``profile_transpose.COLD_BYTES`` move between two uses of one), the
+    plain version,
+    the one PyTorch call ``x.transpose(-2, -1).contiguous()`` (the same
+    function as the plain version) and, as the card's practical copy rate
+    and not the same function, ``torch.empty_like(x).copy_(x)``."""
+    from deltarice_tpu_torch.ops.transpose_cuda import (
+        transpose2d, transpose2d_plain)
+    from deltarice_tpu_torch.profile_transpose import (
+        SHAPES, cold_inputs, random)
+    from deltarice_tpu_torch.utils.profiling import graph_ms, rotated
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def one_call(t):
+        return t.transpose(-2, -1).contiguous()
+
+    def copy(t):
+        return torch.empty_like(t).copy_(t)
+
+    # edge inputs: a ragged shape, and the Nab shape less one column as a
+    # contiguous view 2 bytes off a 16-byte boundary
+    flat = random((ROWS * (LENGTH - 1) + 1,), torch.int16, gen)
+    edges = [random((33, 65), torch.int16, gen),
+             flat[1:].view(ROWS, LENGTH - 1)]
+    check(edges[1].data_ptr() % 16 == 2, "the misaligned view is aligned")
+    err = 0
+    for t in edges:
+        err = max(err, max_err(signed(transpose2d(t)),
+                               signed(transpose2d_plain(t))))
+    check(err == 0, "transpose2d disagrees with its plain version on the "
+          "edge inputs")
+    print(f"[2 kernels] transpose2d edge inputs (33, 65) int16 and a (2048,"
+          f" 6999) int16 view 2 bytes off 16-byte alignment: equal to the "
+          f"plain version")
+    rows = []
+    for label, shape, dtype in SHAPES:
+        a = (x.cuda() if shape == (ROWS, LENGTH)
+             else random(shape, dtype, gen))
+        got = transpose2d(a)
+        want = transpose2d_plain(a)
+        torch.cuda.synchronize()
+        e = max_err(signed(got), signed(want))
+        check(e == 0, f"transpose2d disagrees with its plain version at "
+              f"{shape}")
+        del got, want
+        moved = 2 * nbytes(a)
+        inputs = cold_inputs(a)
+        pairs = len(inputs)
+        t = {"warm": graph_ms([lambda: transpose2d(a)]),
+             "cold": graph_ms(rotated(transpose2d, inputs)),
+             "host": cuda_ms(lambda: transpose2d(a), 20),
+             "plain": graph_ms([lambda: transpose2d_plain(a)]),
+             "call": graph_ms([lambda: one_call(a)]),
+             "call cold": graph_ms(rotated(one_call, inputs)),
+             "copy": graph_ms([lambda: copy(a)]),
+             "copy cold": graph_ms(rotated(copy, inputs))}
+        del inputs
+        row = kernel_row("transpose2d", "deltarice_tpu_torch/csrc/transpose.cu",
+                         "deltarice_tpu/ops/transpose_pallas.py:21", e,
+                         t["warm"], t["plain"], list(shape), moved,
+                         t["call"], "nab" if shape == (ROWS, LENGTH)
+                         else "jax layout")
+        row.update({"dtype": str(dtype).split(".")[-1], "label": label,
+                    "cold_ms": t["cold"], "host_loop_ms": t["host"],
+                    "library_cold_ms": t["call cold"], "copy_ms": t["copy"],
+                    "copy_cold_ms": t["copy cold"],
+                    "timing": "CUDA graph of 20 calls, 5 replays"})
+        rows.append(row)
+        bound = bound_ms(moved)
+        print(f"[2 kernels] transpose2d {label} {tuple(shape)} "
+              f"{row['dtype']}: equal to the plain version; bound "
+              f"{bound:.4f} ms ({moved} B over 3.35 TB/s); kernel warm "
+              f"{t['warm']:.4f} ms ({bound / t['warm']:.0%} of the bound), "
+              f"cold {t['cold']:.4f} ms ({bound / t['cold']:.0%}; {pairs} "
+              f"buffer pairs, {(pairs - 1) * moved / 1e6:.1f} MB between "
+              f"reuses), host loop (cuda_ms, the wrapper's host cost "
+              f"included) {t['host']:.4f} ms; plain {t['plain']:.4f} ms; "
+              f"x.transpose(-2, -1).contiguous() warm {t['call']:.4f} ms, "
+              f"cold {t['call cold']:.4f} ms; the card's copy rate "
+              f"(empty_like(x).copy_(x), not the same function) warm "
+              f"{t['copy']:.4f} ms, cold {t['copy cold']:.4f} ms = "
+              f"{moved / t['copy cold'] / 1e9:.3f} TB/s; {card}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    transpose_sass()
+    return rows
+
+
+def sass_functions() -> dict | None:
+    """``cuobjdump -sass`` of the kernels' library, by function: its
+    lines. None where the toolkit has no cuobjdump."""
+    import shutil
+
+    from deltarice_tpu_torch.ops import _kernels
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).is_file():
+        return None
+    res = subprocess.run([tool, "-sass", str(_kernels.build())],
+                         capture_output=True, text=True, timeout=300)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr.strip()}")
+    funcs, name = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    return funcs
+
+
+def transpose_sass() -> None:
+    """B4's vector kernels must load and store device memory 128 bits a
+    thread (``LDG.E...128``, ``STG.E.128``) and stage through shared memory
+    128 bits a thread (``STS.128``, ``LDS.128``)."""
+    funcs = sass_functions()
+    if funcs is None:
+        print("[2 kernels] SASS: cuobjdump not found, not checked")
+        return
+    vec = {n: b for n, b in funcs.items() if "transpose_vec_kernel" in n}
+    check(len(vec) == 2, f"cuobjdump shows {len(vec)} B4 vector kernels")
+    said = []
+    for name, body in vec.items():
+        ops = collections.Counter(
+            m.group(1) for ln in body for m in [re.search(
+                r"\b((?:LDGSTS|LDG|STG|LDS|STS)(?:\.[^\s;]+)?)[\s;]", ln)]
+            if m)
+        wide = {op: n for op, n in ops.items() if op.endswith(".128")}
+        for kind in ("LDG", "STG", "LDS", "STS"):
+            check(any(op.startswith(kind) for op in wide),
+                  f"B4 kernel {name} has no 128-bit {kind}: {dict(ops)}")
+        check(wide == dict(ops), f"B4 kernel {name} has narrower accesses: "
+              f"{dict(ops)}")
+        kind = "int16" if "IsE" in name else "32-bit"
+        said.append(f"{kind} {dict(sorted(ops.items()))}, CALL "
+                    f"{sum('CALL' in ln for ln in body)}")
+    print(f"[2 kernels] SASS of B4's vector kernels: every global and shared "
+          f"access 128 bits: " + "; ".join(said))
 
 
 def pack_bytes(nvalid, nwords) -> int:
@@ -858,24 +999,10 @@ def tiled_sass() -> None:
     (the memset aside, ``walk_kernel`` and ``untile_kernel`` of
     ``csrc/concentrate_tiled.cu``) must call no routine (a 64-bit division
     or modulo is one)."""
-    import shutil
-
-    from deltarice_tpu_torch.ops import _kernels
-
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not Path(tool).is_file():
+    funcs = sass_functions()
+    if funcs is None:
         print("[6 long kernels] SASS: cuobjdump not found, not checked")
         return
-    res = subprocess.run([tool, "-sass", str(_kernels.build())],
-                         capture_output=True, text=True, timeout=300)
-    check(res.returncode == 0, f"cuobjdump failed: {res.stderr.strip()}")
-    funcs, name = {}, None
-    for line in res.stdout.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :", 1)[1].strip()
-            funcs[name] = []
-        elif name is not None:
-            funcs[name].append(line)
     tiled = {n: body for n, body in funcs.items() if "tiled_" in n}
     check(len(tiled) > 0, "cuobjdump shows no B7 or B8 kernel")
     calls = {n: sum("CALL" in ln for ln in body) for n, body in tiled.items()}
@@ -1473,7 +1600,7 @@ def run() -> int:
         t = time.perf_counter()
         card = phase_device()
         x_np = get_profile("nab").synthetic(ROWS, seed=0)
-        kernels = phase_kernels(x_np)
+        kernels = phase_kernels(x_np, card)
         phase_golden()
         counted = {"nab": {"encode+decode": phase_main_path(x_np)}}
         print(f"[1-4] {time.perf_counter() - t:.1f} s")

@@ -19,9 +19,23 @@
 extern "C" {
 #endif
 
-/* out (b, a) = x (a, b) transposed; elem_size is 2 or 4 bytes. */
-int dr_transpose2d(const void *x, void *out, int64_t a, int64_t b,
+/* out (n, b, a) = x (n, a, b), each matrix transposed; elem_size is 2 or
+ * 4 bytes (else cudaErrorInvalidValue). 16 bytes a thread both ways where
+ * a and b are multiples of 16 / elem_size and both pointers are 16-byte
+ * aligned, else one element at a time. */
+int dr_transpose2d(const void *x, void *out, int64_t n, int64_t a, int64_t b,
                    int elem_size, void *stream);
+
+/* 1 where dr_transpose2d takes its 16-byte path for these pointers and
+ * shape, else 0 (the element-wise path). */
+int dr_transpose_vector_path(const void *x, const void *out, int64_t a,
+                             int64_t b, int elem_size);
+
+/* The transpose's tiles for elem_size: geometry[0..8] = threads of a
+ * block, warps along A, threads of a warp along A, along B, 16-byte pieces
+ * of a shared tile row, vector tile rows (along A), its columns (along
+ * B), the element-wise tile's edge and its rows of threads. Returns 0. */
+int dr_transpose_geometry(int elem_size, int64_t *geometry);
 
 /* Fused delta (diff != 0, seeded by prev0[s], which may be NULL for 0) +
  * zigzag + Rice code + MSB-first pack of row s of x (nseg, length) int16,

@@ -1,9 +1,10 @@
 """ctypes loader for the repository's native C codec and HDF5 filter plugin.
 
-The port reuses the C sources that ship beside the JAX package
-(``deltarice_tpu/native/src/``) by path, without importing that package:
-``dr_codec.c`` (the codec and its host routines) and ``h5z_deltarice.c``
-(the HDF5 filter class for ID 32025 and the dynamic-plugin entry points).
+The port keeps its own copy of the JAX package's C sources in
+``deltarice_tpu_torch/native/src/`` (byte for byte those of
+``deltarice_tpu/native/src/``; a test holds them so): ``dr_codec.c`` (the
+codec and its host routines) and ``h5z_deltarice.c`` (the HDF5 filter
+class for ID 32025 and the dynamic-plugin entry points).
 Both build on first use, with the system C compiler, into one shared
 library under ``deltarice_tpu_torch/build/native/``. It gives the codec its
 host routines (header walk, ragged gather, stream framing), an independent
@@ -30,7 +31,7 @@ from pathlib import Path
 import numpy as np
 
 _PKG = Path(__file__).resolve().parents[1]
-SRC_DIR = _PKG.parent / "deltarice_tpu" / "native" / "src"
+SRC_DIR = Path(__file__).resolve().parent / "src"
 SOURCES = (SRC_DIR / "dr_codec.c", SRC_DIR / "h5z_deltarice.c")
 LIB = _PKG / "build" / "native" / "libh5deltarice_tpu_torch.so"
 

@@ -4,7 +4,7 @@ After installation any HDF5 >= 1.8.11 application (C, Fortran, h5py
 without this package) loads filter 32025 through HDF5's dynamic-plugin
 mechanism, with no registration code: HDF5 scans the directory and calls the
 library's ``H5PLget_plugin_type`` / ``H5PLget_plugin_info`` entry points
-(``deltarice_tpu/native/src/h5z_deltarice.c``).
+(``deltarice_tpu_torch/native/src/h5z_deltarice.c``).
 
 Usage::
 

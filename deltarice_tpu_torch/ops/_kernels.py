@@ -35,7 +35,9 @@ _I64 = ctypes.c_int64
 _I = ctypes.c_int
 
 _SIGNATURES = {
-    "dr_transpose2d": [_P, _P, _I64, _I64, _I, _P],
+    "dr_transpose2d": [_P, _P, _I64, _I64, _I64, _I, _P],
+    "dr_transpose_vector_path": [_P, _P, _I64, _I64, _I],
+    "dr_transpose_geometry": [_I, _P],
     "dr_pack_encode": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I,
                        _P],
     "dr_unpack_decode": [_P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _P],

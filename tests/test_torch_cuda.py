@@ -36,6 +36,7 @@ from deltarice_tpu_torch.ops.concentrate_tiled_cuda import (
 from deltarice_tpu_torch.ops.pack_cuda import pack_encode
 from deltarice_tpu_torch.ops.rice import codeword_lengths_values, zigzag
 from deltarice_tpu_torch.ops.prefilter import prefilter_encode
+from deltarice_tpu_torch.ops import transpose_model
 from deltarice_tpu_torch.ops.transpose_cuda import transpose2d
 from deltarice_tpu_torch.ops.split_decode import _local_width
 from deltarice_tpu_torch.ops.split_decode_cuda import (
@@ -87,15 +88,82 @@ def _assert_same(got, want):
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("dtype,shape", [
-    (torch.int16, (2048, 7000)), (torch.int32, (2048, 1280)),
-    (torch.uint32, (33, 65)), (torch.int16, (1, 1)), (torch.int32, (70000, 3)),
-])
-def test_transpose_matches_plain(cuda, dtype, shape):
+# (dtype, shape, storage offset in elements): the Nab samples, the JAX
+# package's batched shapes (blocks of 1024 segments), every row-pitch class
+# (B % 8 and A % 8 for int16, B % 4 and A % 4 for 32-bit), pointers off
+# their 16-byte boundary, and shapes at the grid's and the tiles' edges
+_TRANSPOSE_CASES = (
+    [(torch.int16, (2048, 7000), 0), (torch.int32, (2048, 1280), 0),
+     (torch.uint32, (33, 65), 0), (torch.int16, (1, 1), 0),
+     (torch.int32, (70000, 3), 0), (torch.uint32, (1, 1), 0),
+     (torch.int16, (70000, 3), 0), (torch.int16, (3, 70000), 0),
+     (torch.uint32, (70000, 3), 0), (torch.uint32, (3, 70000), 0),
+     (torch.int16, (2, 1024, 7168), 0), (torch.int16, (2, 7168, 1024), 0),
+     (torch.uint32, (2, 1024, 1280), 0), (torch.int32, (3, 130, 1024), 0),
+     (torch.int16, (5, 33, 65), 0)]
+    + [(torch.int16, (300, 1000 + r), 0) for r in range(8)]
+    + [(torch.int16, (296 + r, 1000), 0) for r in range(1, 8)]
+    + [(torch.uint32, (96, 500 + r), 0) for r in range(4)]
+    + [(torch.uint32, (96 + r, 500), 0) for r in range(1, 4)]
+    + [(torch.int16, (2048, 6999), 1), (torch.int16, (2048, 7000), 1),
+       (torch.int16, (2, 64, 512), 3), (torch.int16, (2, 64, 512), 8),
+       (torch.uint32, (96, 500), 1), (torch.uint32, (2, 64, 128), 2)])
+
+
+def _transpose_input(dtype, shape, offset):
+    """Seeded data on the card: a contiguous view ``offset`` elements into
+    its storage."""
     rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.integers(-2**15, 2**15, shape).astype(np.int32))
-    x = x.to(torch.int16) if dtype == torch.int16 else x.view(dtype)
-    _assert_same(*_both(transpose2d, x))
+    n = int(np.prod(shape)) + offset
+    if dtype == torch.int16:
+        flat = torch.from_numpy(rng.integers(-2**15, 2**15, n).astype(np.int16))
+    else:
+        flat = torch.from_numpy(rng.integers(-2**31, 2**31, n).astype(np.int32))
+    xc = flat.cuda()[offset:].view(shape)
+    if dtype == torch.uint32:
+        xc = xc.view(torch.uint32)
+    assert xc.data_ptr() % 16 == offset * xc.element_size() % 16
+    return xc
+
+
+@pytest.mark.parametrize("dtype,shape,offset", _TRANSPOSE_CASES, ids=str)
+def test_transpose_matches_plain(cuda, dtype, shape, offset):
+    """Equal to the plain version on a contiguous view ``offset`` elements
+    into its storage, in one launch."""
+    xc = _transpose_input(dtype, shape, offset)
+    _kernels.reset_launches()
+    got = transpose2d(xc)
+    torch.cuda.synchronize()
+    assert _kernels.launches["transpose2d"] == 1
+    _assert_same(got, transpose2d(xc.cpu()))
+
+
+@pytest.mark.parametrize("esize", [2, 4])
+def test_transpose_geometry_is_the_models(cuda, esize):
+    """The kernel's tile constants, as it reports them, are the plain
+    model's."""
+    import ctypes
+
+    got = (ctypes.c_int64 * 9)()
+    assert _kernels.library().dr_transpose_geometry(esize, got) == 0
+    assert tuple(got) == transpose_model.geometry(esize)
+
+
+@pytest.mark.parametrize(
+    "dtype,shape,offset",
+    [c for c in _TRANSPOSE_CASES if np.prod(c[1]) <= 400_000], ids=str)
+def test_transpose_model_is_the_kernel(cuda, dtype, shape, offset):
+    """The plain model takes the kernel's path (``dr_transpose2d``'s own
+    choice) and gives its output."""
+    xc = _transpose_input(dtype, shape, offset)
+    got = transpose2d(xc)
+    a, b = shape[-2:]
+    vector = _kernels.library().dr_transpose_vector_path(
+        xc.data_ptr(), got.data_ptr(), a, b, xc.element_size())
+    want, path = transpose_model.transpose_model(xc.cpu(),
+                                                 xc.data_ptr() % 16)
+    assert path == ("vector" if vector else "edge")
+    _assert_same(got, want)
 
 
 @pytest.mark.parametrize("k", range(16))
