@@ -48,7 +48,8 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    u32-with-follower modes, and a check of their SASS (``cuobjdump``): no
    call to a division routine;
 7. drives the HDF5 entry point on an in-memory direct-chunk store
-   (:class:`MemGroup`; the card's machine has no h5py): ``h5.write_dataset``
+   (``tools.memstore.MemGroup``; the card's machine has no h5py):
+   ``h5.write_dataset``
    and ``h5.read_dataset`` of Nab 2000 x 7000 in (32, 7000) chunks (the
    last an edge chunk), nEDM 1024 x 81920 and NOPTREX 256 x 500000 in
    (32, L) chunks, in 4 windows each, on the data of phases 4-5; every
@@ -72,9 +73,12 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    ``encode_chunks_multihost`` / ``decode_chunks_multihost`` (whole
    segments, worst-case width, no split) and ``roundtrip_check_step``;
    every stream must equal native ``dr_compress``, every decode the input,
-   no lossless sample may mismatch, and B1 and B2 must launch; it times the
-   sharded path against ``compress_batch`` / ``decompress_batch`` on the
-   Nab chunks (the one-rank overhead). Then two ranks over gloo share the
+   no lossless sample may mismatch, and B1 and B2 must launch; it prints the
+   one-rank overhead on the Nab chunks as JSON
+   (``tools.singlechip_scaling.mesh_of_one_overhead``: the sharded path
+   against ``encode_segments`` / ``decode_segments`` and the multihost path
+   against ``compress_batch`` / ``decompress_batch``). Then two ranks over
+   gloo share the
    card through ``python -m deltarice_tpu_torch.examples.sharded_encode``
    on 64 and 63 Nab chunks (63 pads with an empty chunk): rank 0's streams
    and decode must be exact, rank 1 gets None, B1 and B2 launch in both
@@ -83,10 +87,24 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    machine has several cards, the example runs again over NCCL on 64 and
    63 chunks, one rank per card (up to 4); this phase's launches join the
    counted windows;
+12. runs the port's measurement tools in this process, each tool's JSON on
+   a line of its own, every launch in a counted window: ``bench.run`` at
+   2048 x 7000 and one subprocess ``python -m deltarice_tpu_torch.bench``
+   whose last line must parse; ``tools.bench_geometries`` on its seven
+   configs (nEDM and NOPTREX with the split switch off and on), whose
+   ratios and split parts must equal ``GEOMETRY_BENCH.json``'s;
+   ``tools.fuzz_native`` on 60 cases of seed 0 with no failure;
+   ``tools.bench_file`` on the in-memory store, three geometries at 64 MB;
+   ``tools.profile_stages`` at Nab and nEDM; ``tools.singlechip_scaling``;
+   ``tools.scaling_bench`` over NCCL on the cards present, 64 Nab chunks of
+   (32, 7000) a rank. No window may launch B4, and B1, B2, B3, B5, B6 and
+   B9 must each launch;
    then the JSON line of the kernels and the JSON ``ok`` line last.
 
-Each phase prints its seconds. Any failed phase exits nonzero before the
-``ok`` line. Without a CUDA card, or outside a checkout of the repository,
+Each phase prints its seconds. Before the last lines it checks that no
+process it started (a rank, a subprocess, multiprocessing's resource
+tracker) is left running or unreaped. Any failed phase exits nonzero
+before the ``ok`` line. Without a CUDA card, or outside a checkout of the repository,
 it exits nonzero at once. Imports no JAX.
 """
 
@@ -131,6 +149,7 @@ SPIN_CYCLES = 400_000_000  # phase 8's torch.cuda._sleep: about 0.2 s
 # filt[0] = 2 Nab's amplitude (at most 4324) would round-trip exactly
 LOSSY_FILTER = (8, -1)
 MAX_WORLD = 4  # ranks of the NCCL run over several cards
+FUZZ_CASES = 60  # phase 12's differential fuzz against the native codec
 # why no single PyTorch call computes a kernel's function (library_ms null)
 NO_LIBRARY = {
     "pack_encode": "no PyTorch call Rice-codes or bit-packs",
@@ -151,6 +170,23 @@ class SmokeFailure(Exception):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SmokeFailure(what)
+
+
+def child_processes() -> list[str]:
+    """Each child of this process that is still running or not reaped:
+    its pid and command line (zombies have an empty one)."""
+    task = Path(f"/proc/{os.getpid()}/task")
+    pids = {pid for t in task.iterdir()
+            for pid in (t / "children").read_text().split()}
+    out = []
+    for pid in sorted(pids):
+        try:
+            cmd = (Path("/proc") / pid / "cmdline").read_bytes()
+        except OSError:
+            continue  # ended and reaped since the listing
+        cmd = cmd.replace(b"\0", b" ").decode(errors="replace").strip()
+        out.append(f"{pid} {cmd}")
+    return out
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -199,14 +235,12 @@ def phase_device() -> str:
     and power limit as nvidia-smi gives them."""
     from deltarice_tpu_torch import native
     from deltarice_tpu_torch.ops import _kernels
+    from deltarice_tpu_torch.utils.profiling import card as card_of
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    try:
+        card = card_of("cuda:0")
+    except RuntimeError as e:
+        raise SmokeFailure(str(e)) from e
     print(card)
     t0 = time.perf_counter()
     _kernels.library()
@@ -815,8 +849,7 @@ def profiled_rows(run, names) -> list:
     each kernel more than once, :func:`per_call` takes a kernel's time
     from the launches a trace kept, and a kernel that every repeat lost
     is printed as not measured."""
-    from deltarice_tpu_torch.profile_long import _device_rows
-    from deltarice_tpu_torch.utils.profiling import device_trace
+    from deltarice_tpu_torch.utils.profiling import device_rows, device_trace
 
     for _attempt in range(3):
         torch.cuda.synchronize()
@@ -824,7 +857,7 @@ def profiled_rows(run, names) -> list:
             with device_trace(tmp) as prof:
                 run()
                 torch.cuda.synchronize()
-        rows = _device_rows(prof)
+        rows = device_rows(prof)
         if all(any(holds(key, name) for _t, _n, key in rows)
                for name in names):
             break
@@ -1130,70 +1163,13 @@ def phase_long_codec(calls) -> list[dict]:
     return out
 
 
-class MemPlist:
-    """The dataset creation property list's filter pipeline."""
-
-    def __init__(self, filters):
-        self._filters = filters
-
-    def get_nfilters(self) -> int:
-        return len(self._filters)
-
-    def get_filter(self, i):
-        return self._filters[i]
-
-
-class MemDatasetID:
-    """Direct-chunk I/O of one dataset: stored blobs by chunk offset."""
-
-    def __init__(self, filters):
-        self.chunks: dict[tuple, tuple[int, bytes]] = {}
-        self._plist = MemPlist(filters)
-
-    def write_direct_chunk(self, offset, data, filter_mask=0) -> None:
-        self.chunks[tuple(offset)] = (filter_mask, bytes(data))
-
-    def read_direct_chunk(self, offset):
-        return self.chunks[tuple(offset)]
-
-    def get_create_plist(self) -> MemPlist:
-        return self._plist
-
-
-class MemDataset:
-    def __init__(self, name, shape, dtype, chunks, filters):
-        self.name = name
-        self.shape = tuple(shape)
-        self.dtype = np.dtype(dtype)
-        self.chunks = tuple(chunks)
-        self.id = MemDatasetID(filters)
-
-
-class MemGroup:
-    """An in-memory stand-in for an h5py group, with the direct-chunk
-    surface the port's ``h5`` module uses: ``create_dataset`` keeps the
-    filter id and the cd_values it is given."""
-
-    def __init__(self):
-        self.datasets: dict[str, MemDataset] = {}
-
-    def create_dataset(self, name, shape, dtype, chunks, compression,
-                       compression_opts, allow_unknown_filter=False):
-        filters = [(compression, 0, tuple(compression_opts), b"deltarice")]
-        dset = MemDataset(name, shape, dtype, chunks, filters)
-        self.datasets[name] = dset
-        return dset
-
-    def __getitem__(self, name) -> MemDataset:
-        return self.datasets[name]
-
-
 def phase_h5(name: str, x_np) -> dict:
     """Write and read one profile's dataset through ``h5`` on the in-memory
     store, in 4 windows; returns the launches of each counted run."""
     from deltarice_tpu_torch import h5, native
     from deltarice_tpu_torch.models import get_profile
     from deltarice_tpu_torch.ops import _kernels
+    from deltarice_tpu_torch.tools.memstore import MemGroup
 
     cfg = get_profile(name).config
     x = x_np[: H5_ROWS[name]]
@@ -1256,8 +1232,7 @@ def h5_breakdown(name, store, x, cfg, chunks, batch) -> None:
     ``torch.profiler`` repeat for the device's busy share of the wall
     (kernel and memcpy rows; the profiler's own cost is in that wall)."""
     from deltarice_tpu_torch import codec, h5
-    from deltarice_tpu_torch.profile_long import _device_rows
-    from deltarice_tpu_torch.utils.profiling import device_trace
+    from deltarice_tpu_torch.utils.profiling import device_rows, device_trace
 
     runs = {
         "write": (("compress_batch_dispatch", "compress_batch_collect"),
@@ -1281,7 +1256,7 @@ def h5_breakdown(name, store, x, cfg, chunks, batch) -> None:
                 fn()
                 torch.cuda.synchronize()
                 pwall = (time.perf_counter() - t0) * 1e3
-        rows = _device_rows(prof)
+        rows = device_rows(prof)
         busy = sum(r[0] for r in rows)
         d, c = (ms[f] for f in fns)
         top = "; ".join(f"{k[:40]} {v:.2f} ms x {n}" for v, n, k in rows[:4])
@@ -1400,6 +1375,8 @@ def phase_multi_device(data: dict) -> dict:
         decode_chunks_multihost, encode_chunks_multihost,
         initialize_distributed)
     from deltarice_tpu_torch.parallel.sharded import put_sharded
+    from deltarice_tpu_torch.tools.singlechip_scaling import (
+        mesh_of_one_overhead)
 
     windows = {}
     nab = data["nab"].reshape(-1, CHUNK_ROWS, LENGTH)
@@ -1448,7 +1425,11 @@ def phase_multi_device(data: dict) -> dict:
                       f"of {n} Nab chunks")
             torch.cuda.synchronize()
             windows["world 1 (nccl)"] = dict(_kernels.launches)
-            one_rank_overhead(nab, nab_cfg, mesh)
+            over = mesh_of_one_overhead(nab, nab_cfg, mesh)
+            print(f"[11 multi-device] one-rank overhead on {len(nab)} Nab "
+                  f"chunks (singlechip_scaling.mesh_of_one_overhead; ms a "
+                  f"call, median of windows taken in turns):")
+            print(json.dumps(over))
         finally:
             dist.destroy_process_group()
         print(f"[11 multi-device] world 1 (NCCL): launches "
@@ -1474,48 +1455,6 @@ def phase_multi_device(data: dict) -> dict:
         check(n.get("transpose2d", 0) == 0,
               f"multi-device {window} launched transpose2d")
     return windows
-
-
-def one_rank_overhead(nab, cfg, mesh) -> None:
-    """The sharded path on a world of one against ``compress_batch`` /
-    ``decompress_batch`` on the same 64 Nab chunks: host clock around
-    synchronised calls, one warm-up each, then turns of 3 calls (sharded,
-    batch, batch, sharded)."""
-    import deltarice_tpu_torch as dt
-    from deltarice_tpu_torch.parallel.multihost import (
-        decode_chunks_multihost, encode_chunks_multihost)
-
-    chunks = list(nab)
-    streams = dt.compress_batch(chunks, cfg, device="cuda")
-    runs = {"sharded encode": lambda: encode_chunks_multihost(nab, cfg, mesh),
-            "compress_batch": lambda: dt.compress_batch(chunks, cfg,
-                                                        device="cuda"),
-            "sharded decode": lambda: decode_chunks_multihost(streams, cfg,
-                                                              mesh),
-            "decompress_batch": lambda: dt.decompress_batch(streams, cfg,
-                                                            device="cuda")}
-    ms = {k: [] for k in runs}
-    for fn in runs.values():
-        fn()
-    for a, b in (("sharded encode", "compress_batch"),
-                 ("sharded decode", "decompress_batch")):
-        for label in (a, b, b, a):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(3):
-                runs[label]()
-            torch.cuda.synchronize()
-            ms[label].append((time.perf_counter() - t0) / 3 * 1e3)
-    raw = nab.nbytes
-    mean = {k: sum(v) / len(v) for k, v in ms.items()}
-    print(f"[11 multi-device] one-rank overhead on {len(chunks)} Nab chunks "
-          f"(host clock, synchronised, 2 turns of 3 calls): "
-          + "; ".join(f"{k} {' '.join(f'{v:.2f}' for v in ms[k])} ms, mean "
-                      f"{mean[k]:.2f} ms = {raw / mean[k] / 1e6:.4f} GB/s"
-                      for k in runs)
-          + f"; sharded / batch: encode "
-          f"{mean['sharded encode'] / mean['compress_batch']:.4f}x, decode "
-          f"{mean['sharded decode'] / mean['decompress_batch']:.4f}x")
 
 
 def run_ranks(world, backend, src, counts, nab, lossy, out) -> dict:
@@ -1583,6 +1522,104 @@ def run_ranks(world, backend, src, counts, nab, lossy, out) -> dict:
     return windows
 
 
+def phase_measurement_tools(card: str) -> dict:
+    """Phase 12: the port's measurement tools (``deltarice_tpu_torch.bench``
+    and ``deltarice_tpu_torch.tools``) in this process, each tool's JSON on
+    a line of its own; returns the launches of each counted window."""
+    from deltarice_tpu_torch import bench
+    from deltarice_tpu_torch.ops import _kernels
+    from deltarice_tpu_torch.tools import (bench_file, bench_geometries,
+                                           fuzz_native, profile_stages,
+                                           scaling_bench, singlechip_scaling)
+
+    windows = {}
+
+    def counted(label, fn):
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        windows[label] = dict(_kernels.launches)
+        print(f"[12 tools] {label}: {time.perf_counter() - t:.1f} s, "
+              f"launches {json.dumps(windows[label], sort_keys=True)}")
+        print(json.dumps(out))
+        return out
+
+    rep = counted("bench", bench.run)
+    check(rep["detail"]["round_trip"] == "exact" and rep["value"] > 0,
+          "bench gave no exact round trip")
+    t = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "deltarice_tpu_torch.bench"],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    check(res.returncode == 0, f"python -m deltarice_tpu_torch.bench exited "
+          f"{res.returncode}: {res.stderr.strip()[-500:]}")
+    last = json.loads(res.stdout.strip().splitlines()[-1])
+    check(last["unit"] == "GB/s" and last["value"] > 0,
+          "python -m deltarice_tpu_torch.bench: no result on its last line")
+    print(f"[12 tools] python -m deltarice_tpu_torch.bench: exit 0 in "
+          f"{time.perf_counter() - t:.1f} s, last line parses: value "
+          f"{last['value']} GB/s, card {last['card']!r}")
+
+    published = {r["config"]: r for r in json.loads(
+        (ROOT / "GEOMETRY_BENCH.json").read_text())["rows"]}
+
+    def geometries():
+        rows = []
+        for name in bench_geometries.CONFIGS:
+            x, cfg = bench_geometries.make_config(name)
+            iters = bench_geometries.iters_for(x.nbytes, 20)
+            splits = (False, True) if x.shape[1] > 16384 else (False,)
+            for on in splits:
+                split_switch(on)
+                rows.append(bench_geometries.bench_config(name, x, cfg,
+                                                          iters, 5, "cuda"))
+            split_switch(False)
+            del x
+        return bench_geometries.report(rows, card, 20, 5)
+
+    rep = counted("bench_geometries", geometries)
+    for row in rep["rows"]:
+        want = published[row["config"]]
+        check(row["ratio"] == want["ratio"],
+              f"bench_geometries {row['config']}: ratio {row['ratio']}, "
+              f"GEOMETRY_BENCH.json {want['ratio']}")
+        check(row.get("split_parts") == want.get("split_parts"),
+              f"bench_geometries {row['config']}: split_parts "
+              f"{row.get('split_parts')}, GEOMETRY_BENCH.json "
+              f"{want.get('split_parts')}")
+    print(f"[12 tools] bench_geometries: the {len(published)} ratios and "
+          f"split_parts equal GEOMETRY_BENCH.json's; every round trip exact "
+          f"with the split switch off and (nedm, noptrex) on")
+
+    rep = counted("fuzz_native", lambda: fuzz_native.run(
+        FUZZ_CASES, 0, "cuda", log=print))
+    check(rep["failures"] == 0, f"fuzz_native: {rep['failures']} failures")
+    rep = counted("bench_file", lambda: bench_file.run(
+        64, "all", store="memory", device="cuda"))
+    check(all(g["torch_direct_chunk"]["stored_bytes"] > 0
+              for g in rep["detail"]["geometries"].values()),
+          "bench_file stored nothing")
+    for shape in ((1024, 7000, 8), (1024, 81920, 16)):
+        counted(f"profile_stages {shape}",
+                lambda: profile_stages.run(*shape, device="cuda"))
+    counted("singlechip_scaling", lambda: singlechip_scaling.run(
+        store="memory", device="cuda"))
+    rep = counted("scaling_bench", lambda: scaling_bench.run(
+        nseg=CHUNK_ROWS, chunks_per_dev=ROWS // CHUNK_ROWS, device="cuda"))
+    windows.update({f"scaling_bench {k}": v
+                    for k, v in rep["launches"].items()})
+    for window, n in windows.items():
+        check(n.get("transpose2d", 0) == 0, f"phase 12 {window} launched "
+              f"transpose2d")
+    for kernel in ("pack_encode", "unpack_decode", "concentrate_packed",
+                   "concentrate_wide", "concentrate_wide16", "split_decode"):
+        check(any(n.get(kernel) for n in windows.values()),
+              f"phase 12 never launched {kernel}")
+    return windows
+
+
 def run() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this run needs one", file=sys.stderr)
@@ -1636,6 +1673,12 @@ def run() -> int:
         t = time.perf_counter()
         counted["multi-device"] = phase_multi_device(data)
         print(f"[11 multi-device] {card}; {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        counted["tools"] = phase_measurement_tools(card)
+        print(f"[12 tools] {card}; no window launched B4; "
+              f"{time.perf_counter() - t:.1f} s")
+        left = child_processes()
+        check(not left, f"processes left running: {left}")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -451,7 +451,6 @@ def merge_substreams_device(words: torch.Tensor, nbits2: np.ndarray,
     (the JAX package sizes it to the widest sub-stream alone).
     """
     nb = np.ascontiguousarray(nbits2, dtype=np.int64)
-    rows = nb.shape[0]
     nz = nb > 0
     if nz.any():
         # every valid part except each row's last must span >= 2 output
@@ -462,6 +461,17 @@ def merge_substreams_device(words: torch.Tensor, nbits2: np.ndarray,
         last_nz = nb.shape[1] - 1 - np.argmax(nz[:, ::-1], axis=1)
         if (nz & (m_a < 1) & (idx != last_nz[:, None])).any():
             return None
+    w3, nbt, out_w, nwords = _merge_inputs(words, nb, parts)
+    maxw = int(nwords.max(initial=0))
+    return _host_words(_merge_device(w3, nbt, out_w)[:, :maxw]), nwords
+
+
+def _merge_inputs(words: torch.Tensor, nb: np.ndarray, parts: int):
+    """What :func:`_merge_device` takes for the split-encode output
+    ``words`` (rows*parts, W) and its (rows, parts) int64 bit counts ``nb``:
+    (words3 (rows, parts, w_in), bit counts on the device, out_w, merged
+    word counts (rows,) on the host)."""
+    rows = nb.shape[0]
     nwords = (nb.sum(axis=1) + 31) >> 5
     maxw = int(nwords.max(initial=0))
     out_w = max(-(-(maxw + 1) // _WORD_BUCKET) * _WORD_BUCKET, parts)
@@ -470,9 +480,8 @@ def merge_substreams_device(words: torch.Tensor, nbits2: np.ndarray,
     w3 = words[:, : min(w, words.shape[1])]
     if w3.shape[1] < w:
         w3 = torch.nn.functional.pad(w3, (0, w - w3.shape[1]))
-    merged = _merge_device(w3.reshape(rows, parts, w),
-                           torch.from_numpy(nb).to(words.device), out_w)
-    return _host_words(merged[:, :maxw]), nwords
+    return (w3.reshape(rows, parts, w), torch.from_numpy(nb).to(words.device),
+            out_w, nwords)
 
 
 def merge_substreams(words3: np.ndarray, nbits2: np.ndarray):

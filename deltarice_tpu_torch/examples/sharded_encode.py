@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
 import time
 from pathlib import Path
@@ -38,7 +37,6 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from deltarice_tpu_torch.config import RiceConfig
 from deltarice_tpu_torch.ops import _kernels
@@ -46,6 +44,7 @@ from deltarice_tpu_torch.parallel.multihost import (
     decode_chunks_multihost,
     encode_chunks_multihost,
     initialize_distributed,
+    spawn_ranks,
 )
 from deltarice_tpu_torch.parallel.sharded import (
     chunk_mesh,
@@ -169,24 +168,7 @@ def main(argv=None) -> int:
     out.mkdir(parents=True, exist_ok=True)
     (out / "store").unlink(missing_ok=True)
     t0 = time.perf_counter()
-    # one OpenMP thread per rank unless the caller sets a count, as torchrun
-    # does: every rank's native host helpers otherwise start a team as wide
-    # as the host, and the teams and NCCL's polling threads oversubscribe it
-    saved = os.environ.get("OMP_NUM_THREADS")
-    os.environ.setdefault("OMP_NUM_THREADS", "1")
-    try:
-        ctx = mp.spawn(_rank_main, args=(args,), nprocs=args.world,
-                       join=False)
-    finally:
-        if saved is None:
-            del os.environ["OMP_NUM_THREADS"]
-    deadline = time.monotonic() + JOIN_TIMEOUT_S
-    while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
-        if time.monotonic() >= deadline:
-            for proc in ctx.processes:
-                proc.kill()
-            raise TimeoutError(f"the ranks did not finish in "
-                               f"{JOIN_TIMEOUT_S} s")
+    spawn_ranks(_rank_main, args.world, (args,), JOIN_TIMEOUT_S)
     root = json.loads((out / "rank0.json").read_text())
     for n, r in root["chunks"].items():
         print(f"{n} chunks over {args.world} ranks ({args.backend}, "

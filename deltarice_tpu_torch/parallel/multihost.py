@@ -17,10 +17,13 @@ torchrun's (or SLURM's) environment or from explicit arguments.
 from __future__ import annotations
 
 import os
+import time
+from multiprocessing import resource_tracker
 
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from ..codec import (
     _WORD_BUCKET,
@@ -84,6 +87,39 @@ def initialize_distributed(device=None, **kwargs) -> None:
         torch.cuda.set_device(dev)
     kwargs.setdefault("backend", "nccl" if dev.type == "cuda" else "gloo")
     dist.init_process_group(**kwargs)
+
+
+def spawn_ranks(fn, world: int, args=(), timeout_s: float = 120.0) -> None:
+    """Run ``fn(rank, *args)`` in ``world`` processes started by
+    ``torch.multiprocessing.spawn`` and wait for them. Each gets one OpenMP
+    thread unless ``OMP_NUM_THREADS`` says otherwise, as under torchrun:
+    every rank's native host helpers otherwise start a team as wide as the
+    host, and the teams and NCCL's polling threads oversubscribe it. A rank
+    that fails raises here; ranks still running after ``timeout_s`` are
+    killed and TimeoutError is raised.
+
+    The spawn also starts multiprocessing's resource tracker, a process
+    that would otherwise outlive the caller and be left for init to reap;
+    it is stopped and reaped here once the ranks are done (the next spawn
+    starts it again)."""
+    saved = os.environ.get("OMP_NUM_THREADS")
+    os.environ.setdefault("OMP_NUM_THREADS", "1")
+    try:
+        ctx = mp.spawn(fn, args=args, nprocs=world, join=False)
+    finally:
+        if saved is None:
+            del os.environ["OMP_NUM_THREADS"]
+    try:
+        deadline = time.monotonic() + timeout_s
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+            if time.monotonic() >= deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                    proc.join()
+                raise TimeoutError(
+                    f"the ranks did not finish in {timeout_s} s")
+    finally:
+        resource_tracker._resource_tracker._stop()
 
 
 def _local_chunks(batch: np.ndarray, mesh: ChunkMesh):

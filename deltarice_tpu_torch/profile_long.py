@@ -21,22 +21,12 @@ import time
 
 import torch
 
+from .utils.profiling import device_rows as _device_rows
+
 SPLIT_ENV = "DELTARICE_TPU_SPLIT_DECODE"
 CHUNK_ROWS = 32
 REPS = 3
 WAVEFORMS = {"nedm": 1024, "noptrex": 256}
-
-
-def _device_rows(prof):
-    """(device ms, count, name) of the profiler's kernel and memcpy rows,
-    largest first; ``aten::`` and profiler-internal rows are left out."""
-    rows = []
-    for ev in prof.key_averages():
-        ms = ev.device_time_total / 1e3
-        if ms <= 0 or ev.key.startswith(("aten::", "Activity Buffer")):
-            continue
-        rows.append((ms, ev.count, ev.key))
-    return sorted(rows, reverse=True)
 
 
 def _window(label: str, fn) -> None:
