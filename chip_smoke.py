@@ -59,8 +59,9 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    must return while the decode of a later NOPTREX bucket, queued behind
    a spin kernel of about 0.2 s, is still running on the card;
 9. runs ``optimize`` over the whole Nab dataset on the card (and on its
-   first 64 rows against ``device="cpu"``), then the CLI's ``warmup`` and
-   ``install-plugin`` as subprocesses;
+   first 64 rows against ``device="cpu"``; phase 13 takes its n_taps=3
+   choice), then the CLI's ``warmup`` and ``install-plugin`` as
+   subprocesses;
 10. checks that no counted window launched B4 (every codec kernel reads
    segment-major arrays), then prints a JSON line of the kernels — each
    row with its launches on the path, its time, its plain version's, the
@@ -93,12 +94,38 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    whose last line must parse; ``tools.bench_geometries`` on its seven
    configs (nEDM and NOPTREX with the split switch off and on), whose
    ratios and split parts must equal ``GEOMETRY_BENCH.json``'s;
-   ``tools.fuzz_native`` on 60 cases of seed 0 with no failure;
+   ``tools.fuzz_native`` on 60 cases of seed 0 with no failure (2-6 s on
+   an H100 since the generic inverse became a kernel; its ``slowest``
+   cases, 28, 31 and 43, take 0.1-0.5 s each, where cases 31 and 58 took
+   12-13 s each through the per-sample loop);
    ``tools.bench_file`` on the in-memory store, three geometries at 64 MB;
    ``tools.profile_stages`` at Nab and nEDM; ``tools.singlechip_scaling``;
    ``tools.scaling_bench`` over NCCL on the cards present, 64 Nab chunks of
    (32, 7000) a rank. No window may launch B4, and B1, B2, B3, B5, B6 and
    B9 must each launch;
+13. drives the generic-filter path, whose decode ends in the generic
+   pre-filter inverse's kernel (``iir_decode``, ``csrc/prefilter.cu``, the
+   counterpart of the JAX package's ``lax.scan``), every launch in a
+   counted window: ``compress_batch`` / ``decompress_batch`` of phase 4's
+   64 Nab chunks with the (M, filter) that phase 9's ``optimize(n_taps=3)``
+   chose, with (-1, 1) and with ``LOSSY_FILTER``, ``h5.write_dataset`` /
+   ``h5.read_dataset`` of Nab 2000 x 7000 with the optimizer's choice
+   (split switch off and on), and phase 5's 8 NOPTREX chunks with
+   ``NOPTREX_FILTER`` at ``NOPTREX_FILTER_M`` (the split encode's FIR halo;
+   the decode after B2 and, switch on, after B9 + B6); every stream and
+   blob must equal native ``dr_compress``, every lossless decode the input
+   and the lossy one native ``dr_decompress``'s output, every decode and
+   read must launch ``iir_decode``, and a spy on the plain version
+   (``ops/prefilter.py::iir_decode_plain``) must see no CUDA tensor. Then
+   the kernel against its plain version (on a CPU copy), exactly: at Nab
+   (2048, 7000) with the optimizer's filter and with a seeded 12-tap
+   filter, on the division's edges (``IIR_EDGES``: a leading tap that
+   wraps to 0 gives -1 everywhere, -32768 / -1) and at one NOPTREX h5
+   bucket (64, 500000), the plain version on its first ``NOPTREX_PLAIN``
+   rows x samples; and its times with CUDA events at Nab (also with the
+   lossy filter's division) and at the NOPTREX bucket, beside the plain
+   version on the card and the parent's per-sample loop over
+   ``PARENT_PREFIX`` Nab samples;
    then the JSON line of the kernels and the JSON ``ok`` line last.
 
 Each phase prints its seconds. Before the last lines it checks that no
@@ -149,12 +176,28 @@ SPIN_CYCLES = 400_000_000  # phase 8's torch.cuda._sleep: about 0.2 s
 # filt[0] = 2 Nab's amplitude (at most 4324) would round-trip exactly
 LOSSY_FILTER = (8, -1)
 MAX_WORLD = 4  # ranks of the NCCL run over several cards
+# phase 13, the generic-filter path: NOPTREX's filter, the rows x samples of
+# NOPTREX's input the plain version checks (the inverse is causal, so a
+# prefix of the input gives a prefix of the output) and times, the Nab
+# samples the parent's per-sample loop is timed over, and the division's
+# edges (a leading tap that wraps to 0, -32768 / -1, large divisors)
+NOPTREX_FILTER = (1, -1, 0, 1)
+# its M: the filter widens NOPTREX's residuals, so at the profile's M=8 the
+# streams grow to ~24 bits a sample and the split decode's router declines
+# them; at M=512 they take ~11 bits and the router splits them in 32
+NOPTREX_FILTER_M = 512
+NOPTREX_PLAIN = (OPT_BUCKET, 50_000)
+NOPTREX_PLAIN_TIMED = 5_000
+PARENT_PREFIX = 700
+IIR_EDGES = ((65536, -1), (65536,), (-1,), (-32768, 5, -7), (65535, 3))
 FUZZ_CASES = 60  # phase 12's differential fuzz against the native codec
 # why no single PyTorch call computes a kernel's function (library_ms null)
 NO_LIBRARY = {
     "pack_encode": "no PyTorch call Rice-codes or bit-packs",
     "unpack_decode": "no PyTorch call decodes a Rice stream",
     "split_decode": "no PyTorch call decodes a Rice stream",
+    "iir_decode": "no PyTorch call runs a recurrence with int16 wrap and "
+                  "truncating division",
     "concentrate_packed": "a scatter needs the destination plane slot - disp "
                           "and a dump slot for dead slots built first",
 }
@@ -1310,12 +1353,15 @@ def phase_overlap(nab_np, noptrex_streams) -> None:
             s, opt_cfg.to_cd_values())), "overlap: NOPTREX decode differs")
 
 
-def phase_tools(nab_np) -> None:
+def phase_tools(nab_np) -> tuple[int, tuple[int, ...]]:
+    """``optimize`` on the card against the CPU, then the CLI; returns the
+    (M, filter) that ``optimize(n_taps=3)`` chose over the whole dataset."""
     import deltarice_tpu_torch as dt
     from deltarice_tpu_torch import optimize as opt
     from deltarice_tpu_torch.native import LIB
 
     x = nab_np[: H5_ROWS["nab"]]
+    chosen = None
     for n_taps in (2, 3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1345,6 +1391,7 @@ def phase_tools(nab_np) -> None:
               f"{measured:.6f} bits/sample; 64 rows: "
               f"card == CPU ({small_cpu.m}, {list(small_cpu.filt)}, "
               f"{b_gpu:.9f} bits)")
+        chosen = (cfg.m, cfg.filt)
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     with tempfile.TemporaryDirectory() as tmp:
         for argv in (["warmup", "--device", "cuda"],
@@ -1360,6 +1407,7 @@ def phase_tools(nab_np) -> None:
                   f"{(res.stdout + res.stderr).strip().splitlines()[-1]}")
         check((Path(tmp) / LIB.name).is_file(),
               "install-plugin left no plugin file")
+    return chosen
 
 
 def phase_multi_device(data: dict) -> dict:
@@ -1620,6 +1668,259 @@ def phase_measurement_tools(card: str) -> dict:
     return windows
 
 
+def phase_generic(data: dict, nab_choice, card: str) -> tuple[dict, list]:
+    """Phase 13, the generic-filter path: the codec and ``h5`` with filters
+    other than the delta, whose decode ends in the generic inverse's kernel
+    (``iir_decode``); then the kernel against its plain version and timed.
+    Returns the launches of each counted window and the kernel's rows."""
+    import deltarice_tpu_torch as dt
+    from deltarice_tpu_torch.ops import prefilter
+
+    m, nab_filt = nab_choice
+    nab_filt = tuple(nab_filt)
+    check(nab_filt != (1, -1), "phase 9's optimize chose the delta filter")
+    nab = data["nab"]
+    windows = {}
+    with captured([(prefilter, "iir_decode_plain")]) as (plain_calls, _ms):
+        for label, cfg in (
+                (f"nab optimize {list(nab_filt)}",
+                 dt.RiceConfig(m, LENGTH, nab_filt)),
+                ("nab [-1, 1]", dt.RiceConfig(8, LENGTH, (-1, 1))),
+                (f"nab lossy {list(LOSSY_FILTER)}",
+                 dt.RiceConfig(8, LENGTH, LOSSY_FILTER))):
+            windows.update(generic_batch(label, nab, cfg, (False,)))
+        windows.update(generic_h5(nab[: H5_ROWS["nab"]],
+                                  dt.RiceConfig(m, LENGTH, nab_filt)))
+        noptrex = data["noptrex"]
+        cfg = dt.RiceConfig(NOPTREX_FILTER_M, noptrex.shape[1],
+                            NOPTREX_FILTER)
+        label = f"noptrex {list(NOPTREX_FILTER)}"
+        windows.update(generic_batch(label, noptrex, cfg, (False, True)))
+    for kernel in ("split_decode", "concentrate_wide16"):
+        check(windows[f"{label} decode(split on)"].get(kernel, 0) > 0,
+              f"phase 13 {label} decode(split on) never launched {kernel}")
+    on_card = [a for args in plain_calls["iir_decode_plain"] for a in args
+               if isinstance(a, torch.Tensor) and a.is_cuda]
+    check(not on_card, f"the plain inverse ran on {len(on_card)} CUDA "
+          f"tensors in the counted windows")
+    for window, n in windows.items():
+        check(n.get("iir_decode", 0) > 0 or "encode" in window
+              or "write" in window, f"phase 13 {window} never launched "
+              f"iir_decode")
+        check(n.get("transpose2d", 0) == 0, f"phase 13 {window} launched "
+              f"transpose2d")
+    print(f"[13 generic] every counted decode and read launched iir_decode; "
+          f"the plain inverse saw no CUDA tensor "
+          f"({len(plain_calls['iir_decode_plain'])} calls)")
+    return windows, iir_rows(nab, noptrex, nab_filt, card)
+
+
+def generic_batch(label, x_np, cfg, splits) -> dict:
+    """``compress_batch`` / ``decompress_batch`` of ``x_np`` in chunks of
+    32 rows, the decode with the split switch off (and on): every stream
+    must equal native ``dr_compress``, every decode the input (native
+    ``dr_decompress``'s output where the filter is lossy)."""
+    import deltarice_tpu_torch as dt
+    from deltarice_tpu_torch import native
+    from deltarice_tpu_torch.ops import _kernels
+
+    chunks = list(x_np.reshape(-1, CHUNK_ROWS, x_np.shape[1]))
+    cd = cfg.to_cd_values()
+    windows = {}
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    streams = dt.compress_batch(chunks, cfg, device="cuda")
+    torch.cuda.synchronize()
+    windows[f"{label} encode"] = dict(_kernels.launches)
+    for i, (c, s) in enumerate(zip(chunks, streams)):
+        check(s == native.native_compress(c, cd),
+              f"{label} chunk {i}: stream differs from native dr_compress")
+    times = {"encode": cuda_ms(lambda: dt.compress_batch(chunks, cfg,
+                                                         device="cuda"), 3)}
+    lost = 0
+    for on in splits:
+        switch = "on" if on else "off"
+        split_switch(on)
+        _kernels.reset_launches()
+        back = dt.decompress_batch(streams, cfg, device="cuda")
+        torch.cuda.synchronize()
+        windows[f"{label} decode(split {switch})"] = dict(_kernels.launches)
+        for i, (c, s, b) in enumerate(zip(chunks, streams, back)):
+            want = (c.ravel() if cfg.lossless
+                    else native.native_decompress(s, cd))
+            check(np.array_equal(b, want), f"{label} chunk {i}: decode "
+                  f"(split {switch}) differs from "
+                  f"{'the input' if cfg.lossless else 'dr_decompress'}")
+            lost += int((b != c.ravel()).sum())
+        times[f"decode(split {switch})"] = cuda_ms(
+            lambda: dt.decompress_batch(streams, cfg, device="cuda"), 3)
+    split_switch(False)
+    check(cfg.lossless == (lost == 0), f"{label}: {lost} samples lost")
+    raw = x_np.nbytes
+    comp = sum(len(s) for s in streams)
+    rates = ", ".join(f"{k} {v:.3f} ms = {raw / v / 1e6:.4f} GB/s"
+                      for k, v in times.items())
+    print(f"[13 generic] {label}: {len(chunks)} chunks of ({CHUNK_ROWS}, "
+          f"{x_np.shape[1]}) M={cfg.m}: every stream equals native "
+          f"dr_compress, every decode "
+          f"{'the input' if cfg.lossless else 'native dr_decompress'}"
+          f"{'' if cfg.lossless else f' ({lost} samples lost)'}; ratio "
+          f"{comp / raw:.6f}; {rates}; launches "
+          f"{json.dumps(windows, sort_keys=True)}")
+    return windows
+
+
+def generic_h5(x, cfg) -> dict:
+    """``h5.write_dataset`` / ``h5.read_dataset`` of ``x`` on the in-memory
+    store with a generic filter: blobs equal to native ``dr_compress`` of
+    the zero-padded chunks, the read equal to the input."""
+    from deltarice_tpu_torch import h5, native
+    from deltarice_tpu_torch.ops import _kernels
+    from deltarice_tpu_torch.tools.memstore import MemGroup
+
+    chunks = (CHUNK_ROWS, x.shape[1])
+    batch = H5_WINDOW["nab"]
+    store = MemGroup()
+    windows, wall = {}, {}
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    dset = h5.write_dataset(store, "nab", x, cfg, chunks, batch_chunks=batch,
+                            device="cuda")
+    wall["write"] = time.perf_counter() - t0
+    windows["nab h5 write"] = dict(_kernels.launches)
+    cd = cfg.to_cd_values()
+    for off, (mask, blob) in dset.id.chunks.items():
+        full = np.zeros(chunks, np.int16)
+        part = x[off[0]: off[0] + CHUNK_ROWS]
+        full[: part.shape[0]] = part
+        check(mask == 0 and blob == native.native_compress(full, cd),
+              f"nab h5 chunk {off}: blob differs from native dr_compress")
+    for on in (False, True):
+        switch = "on" if on else "off"
+        split_switch(on)
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        back = h5.read_dataset(store["nab"], batch_chunks=batch,
+                               device="cuda")
+        wall[f"read(split {switch})"] = time.perf_counter() - t0
+        windows[f"nab h5 read(split {switch})"] = dict(_kernels.launches)
+        check(np.array_equal(back, x), f"nab h5 read (split {switch}) "
+              f"differs")
+    split_switch(False)
+    rates = ", ".join(f"{k} {v * 1e3:.1f} ms = {x.nbytes / v / 1e9:.4f} GB/s"
+                      for k, v in wall.items())
+    print(f"[13 generic] nab h5 {x.shape} M={cfg.m} filter "
+          f"{list(cfg.filt)} in {len(dset.id.chunks)} chunks of {chunks}: "
+          f"every blob equals native dr_compress, the read is exact with "
+          f"the split switch off and on; {rates}; launches "
+          f"{json.dumps(windows, sort_keys=True)}")
+    return windows
+
+
+def iir_rows(nab, noptrex, nab_filt, card) -> list[dict]:
+    """The generic inverse's kernel against its plain version (run on a
+    CPU copy) on the inputs the path gives it, the forward filter's
+    output: Nab (2048, 7000) with phase 9's filter, one NOPTREX h5 bucket
+    (64, 500000) with ``NOPTREX_FILTER`` (its plain version on the first
+    ``NOPTREX_PLAIN`` rows x samples), a seeded 12-tap filter and the
+    division's edges; then its times with CUDA events beside the plain
+    version's on the card and the parent's per-sample loop over
+    ``PARENT_PREFIX`` samples. Returns the Nab and NOPTREX rows."""
+    from deltarice_tpu_torch.ops.prefilter import (
+        iir_decode_plain, prefilter_decode, prefilter_encode)
+
+    def held(d, filt, want_samples=None, prefix=None):
+        got = prefilter_decode(d, filt)
+        torch.cuda.synchronize()
+        part = d if prefix is None else d[: prefix[0], : prefix[1]]
+        want = iir_decode_plain(part.cpu(), filt)
+        err = max_err(got[: part.shape[0], : part.shape[1]], want)
+        check(err == 0, f"iir_decode {tuple(d.shape)} filter {list(filt)} "
+              f"disagrees with its plain version by {err}")
+        if want_samples is not None:
+            check(torch.equal(got.cpu(), want_samples),
+                  f"iir_decode {tuple(d.shape)} filter {list(filt)} does "
+                  f"not give back the samples")
+        return err
+
+    rng = np.random.default_rng(0)
+    long_filt = (1,) + tuple(int(c) for c in rng.integers(-8, 9, 11))
+    x = torch.from_numpy(nab)
+    xc = x.cuda()
+    d_nab = prefilter_encode(xc, nab_filt)
+    errs = [held(d_nab, nab_filt, x if abs(nab_filt[0]) == 1 else None),
+            held(prefilter_encode(xc, long_filt), long_filt, x)]
+    edge = torch.from_numpy(nab[:256].copy())
+    edge[:, ::97] = -32768
+    edge[:, 1::89] = 32767
+    edgec = edge.cuda()
+    for filt in IIR_EDGES:
+        errs.append(held(edgec, filt))
+    xo = torch.from_numpy(noptrex[:OPT_BUCKET])
+    d_opt = prefilter_encode(xo.cuda(), NOPTREX_FILTER)
+    errs.append(held(d_opt, NOPTREX_FILTER, xo, NOPTREX_PLAIN))
+    print(f"[13 generic] iir_decode equals its plain version: Nab "
+          f"{tuple(d_nab.shape)} filter {list(nab_filt)} and a 12-tap "
+          f"filter {list(long_filt)} (both give back the samples), the "
+          f"edges {[list(f) for f in IIR_EDGES]} on {tuple(edge.shape)}, "
+          f"NOPTREX {tuple(d_opt.shape)} filter {list(NOPTREX_FILTER)} "
+          f"(the plain version on {NOPTREX_PLAIN}; the whole bucket gives "
+          f"back the samples)")
+
+    lossy_d = prefilter_encode(xc, LOSSY_FILTER)
+    ms = {"nab": cuda_ms(lambda: prefilter_decode(d_nab, nab_filt), 20),
+          "nab lossy": cuda_ms(lambda: prefilter_decode(lossy_d,
+                                                        LOSSY_FILTER), 20),
+          "noptrex": cuda_ms(lambda: prefilter_decode(d_opt,
+                                                      NOPTREX_FILTER), 5),
+          # one chunk's rows: what each launch of a batch decode takes
+          # where every chunk fills a word bucket of its own
+          "noptrex chunk": cuda_ms(lambda: prefilter_decode(
+              d_opt[:CHUNK_ROWS], NOPTREX_FILTER), 5)}
+    plain = {"nab": cuda_ms(lambda: iir_decode_plain(d_nab, nab_filt), 1),
+             "parent": cuda_ms(lambda: iir_decode_plain(
+                 d_nab[:, :PARENT_PREFIX], nab_filt), 3),
+             "noptrex": cuda_ms(lambda: iir_decode_plain(
+                 d_opt[:, :NOPTREX_PLAIN_TIMED], NOPTREX_FILTER), 1)}
+    per_sample = plain["parent"] / PARENT_PREFIX * 1e3
+    rows = []
+    for key, d, filt in (("nab", d_nab, nab_filt),
+                         ("noptrex", d_opt, NOPTREX_FILTER)):
+        moved = 2 * nbytes(d)  # each sample read once and written once
+        row = kernel_row("iir_decode", "deltarice_tpu_torch/csrc/prefilter.cu",
+                         "deltarice_tpu/ops/prefilter.py:81", max(errs),
+                         ms[key], plain[key], list(d.shape), moved, None,
+                         key)
+        row["filter"] = list(filt)
+        if key == "noptrex":
+            row.update({"plain_shape": [OPT_BUCKET, NOPTREX_PLAIN_TIMED],
+                        "chunk_ms": ms["noptrex chunk"],
+                        "chunk_shape": [CHUNK_ROWS, d.shape[1]]})
+        else:
+            row.update({"lossy_ms": ms["nab lossy"],
+                        "lossy_filter": list(LOSSY_FILTER),
+                        "parent_loop_ms": plain["parent"],
+                        "parent_loop_shape": [nab.shape[0], PARENT_PREFIX],
+                        "parent_us_per_sample": per_sample})
+        rows.append(row)
+        print(f"[13 generic] iir_decode {tuple(d.shape)} filter {list(filt)}"
+              f": kernel {ms[key]:.4f} ms, bound {bound_ms(moved):.4f} ms "
+              f"({moved} B over 3.35 TB/s), plain on the card "
+              f"{plain[key]:.4f} ms"
+              f"{'' if key == 'nab' else f' on {NOPTREX_PLAIN_TIMED} samples'}"
+              f"; {card}")
+    print(f"[13 generic] iir_decode Nab lossy {list(LOSSY_FILTER)} (the "
+          f"division): {ms['nab lossy']:.4f} ms; NOPTREX ({CHUNK_ROWS}, "
+          f"{d_opt.shape[1]}) (one chunk): {ms['noptrex chunk']:.4f} ms; "
+          f"the parent's per-sample "
+          f"loop (the plain version) on the card over ({nab.shape[0]}, "
+          f"{PARENT_PREFIX}): {plain['parent']:.4f} ms = {per_sample:.2f} us "
+          f"a sample; {card}")
+    return rows
+
+
 def run() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this run needs one", file=sys.stderr)
@@ -1661,7 +1962,7 @@ def run() -> int:
         phase_overlap(x_np, streams["noptrex"])
         print(f"[8 overlap] {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
-        phase_tools(x_np)
+        nab_choice = phase_tools(x_np)
         print(f"[9 tools] {time.perf_counter() - t:.1f} s")
         check("jax" not in sys.modules and "deltarice_tpu" not in sys.modules,
               "the port imported JAX or the JAX package")
@@ -1677,13 +1978,17 @@ def run() -> int:
         counted["tools"] = phase_measurement_tools(card)
         print(f"[12 tools] {card}; no window launched B4; "
               f"{time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        counted["generic"], generic_rows = phase_generic(data, nab_choice,
+                                                         card)
+        print(f"[13 generic] {card}; {time.perf_counter() - t:.1f} s")
         left = child_processes()
         check(not left, f"processes left running: {left}")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     # B1, B2 and B3 have a row at each of two shapes
-    rows = kernels + long_rows + codec_rows
+    rows = kernels + long_rows + codec_rows + generic_rows
     for row in rows:
         paths = {f"{path} {window}": n[row["name"]]
                  for path, windows in counted.items()
@@ -1693,6 +1998,9 @@ def run() -> int:
         row["card"] = card
         if row["library_ms"] is None:
             row["library_note"] = NO_LIBRARY[row["name"]]
+        if row["name"] == "iir_decode":
+            row["note"] = ("the counterpart of an XLA lax.scan, not of a "
+                           "Pallas kernel")
         if row["name"] in STAGING_KERNELS:
             row["note"] = ("not on the port's path: B2 and B9 store samples "
                            "at their final index and make no staging")

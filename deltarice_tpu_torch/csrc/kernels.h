@@ -132,6 +132,18 @@ int dr_split_decode(const int32_t *words, const int32_t *wv, int16_t *local,
                     int64_t wsub, int64_t halo, int64_t lw, int k, int delta,
                     int passes, void *stream);
 
+/* The generic pre-filter inverse of each row of d (rows, n) int16 into
+ * out (rows, n): out[i] = wrap16(d[i] - sum_{j=1..nhist} taps[j - 1] *
+ * out[i - j]) / f0, truncating, wrapped to int16; f0 is taken mod 2^16
+ * (0 gives -1 everywhere, XLA's division by zero; +-1 divides by
+ * nothing). taps: nhist int16s on the device (may be NULL when nhist is
+ * 0); nhist < DR_IIR_MAX_TAPS, else cudaErrorInvalidValue. Nothing is
+ * launched when rows or n is 0. */
+#define DR_IIR_MAX_TAPS 1024
+int dr_iir_decode(const int16_t *d, int16_t *out, const int16_t *taps,
+                  int64_t nhist, int f0, int64_t rows, int64_t n,
+                  void *stream);
+
 #ifdef __cplusplus
 }
 #endif

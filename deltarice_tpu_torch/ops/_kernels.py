@@ -51,6 +51,7 @@ _SIGNATURES = {
                                 _P, _P],
     "dr_split_decode": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
                         _I, _I, _I, _P],
+    "dr_iir_decode": [_P, _P, _P, _I64, _I, _I64, _I64, _P],
 }
 
 #: scratch sizes the kernels' wrappers allocate: (length or words, nseg)

@@ -16,8 +16,11 @@ Semantics match the reference filter byte for byte:
   division being C's (truncation toward zero) applied to the *wrapped*
   int16 numerator — exact reconstruction requires |filt[0]| == 1.
 
-These run as torch ops on the tensor's own device; the codec's fast path
-(delta) fuses them into the CUDA kernels instead.
+The encode and the delta inverse run as torch ops on the tensor's own
+device (the codec's delta path fuses them into B1 and B2 instead). The
+generic inverse launches the CUDA kernel of :mod:`.prefilter_cuda` on a
+CUDA tensor; :func:`iir_decode_plain` is its plain version, which a CPU
+tensor takes.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from __future__ import annotations
 import torch
 
 from ..config import DELTA_FILTER
+from . import _kernels
+from .prefilter_cuda import iir_decode
 from .rice import wrap16
 
 
@@ -66,18 +71,27 @@ def prefilter_encode(x: torch.Tensor, filt: tuple[int, ...] = DELTA_FILTER,
 
 def prefilter_decode(d: torch.Tensor,
                      filt: tuple[int, ...] = DELTA_FILTER) -> torch.Tensor:
-    """Invert the causal pre-filter along the last axis; returns int16."""
-    di = d.to(torch.int64)
+    """Invert the causal pre-filter along the last axis; returns int16.
+
+    The delta inverse is a prefix sum in torch ops. Any other filter
+    launches the CUDA kernel (:func:`.prefilter_cuda.iir_decode`) on a
+    CUDA tensor and takes :func:`iir_decode_plain` on a CPU tensor; any
+    other device raises."""
     if tuple(filt) == DELTA_FILTER:
-        return wrap16(torch.cumsum(di, dim=-1)).to(torch.int16)
-    return _iir_decode(di, filt)
+        return wrap16(torch.cumsum(d.to(torch.int64), dim=-1)).to(torch.int16)
+    if _kernels.route(d):
+        return iir_decode(d, filt)
+    return iir_decode_plain(d, filt)
 
 
-def _iir_decode(d: torch.Tensor, filt: tuple[int, ...]) -> torch.Tensor:
-    """Sequential IIR inverse for generic filters: one step per sample,
+def iir_decode_plain(d: torch.Tensor, filt: tuple[int, ...]) -> torch.Tensor:
+    """Plain version of the generic inverse: one step per sample,
     vectorised over the leading axes. filt[0] == 1 or -1 gives exact
     reconstruction; other leading coefficients replicate the reference's
-    truncating division (lossy in general)."""
+    truncating division (lossy in general), and one that wraps to 0 gives
+    -1 everywhere, as XLA's integer division by zero does in the JAX
+    package."""
+    d = d.to(torch.int64)
     f0 = c16(filt[0])
     taps = [c16(c) for c in filt[1:]]
     out = torch.empty_like(d)
@@ -85,7 +99,9 @@ def _iir_decode(d: torch.Tensor, filt: tuple[int, ...]) -> torch.Tensor:
         num = d[..., i]
         for j, c in enumerate(taps[:i], start=1):
             num = wrap16(num - wrap16(out[..., i - j] * c))
-        if f0 != 1:
+        if f0 == 0:
+            num = torch.full_like(num, -1)
+        elif f0 != 1:
             num = torch.div(num, f0, rounding_mode="trunc")
         out[..., i] = wrap16(num)
     return out.to(torch.int16)

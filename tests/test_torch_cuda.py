@@ -16,8 +16,9 @@ import torch
 import deltarice_tpu_torch as dt
 from deltarice_tpu_torch import codec
 from deltarice_tpu_torch.models import get_profile
-from deltarice_tpu_torch.native import native_compress
-from deltarice_tpu_torch.ops import _kernels
+from deltarice_tpu_torch.native import native_compress, native_decompress
+from deltarice_tpu_torch.ops import _kernels, prefilter
+from deltarice_tpu_torch.ops.prefilter_cuda import MAX_TAPS
 from deltarice_tpu_torch.ops.concentrate_cuda import (
     DEAD,
     biased_plane,
@@ -45,6 +46,7 @@ from deltarice_tpu_torch.ops.split_decode_cuda import (
 )
 from deltarice_tpu_torch.ops.tiled_model import decode_tiled
 from deltarice_tpu_torch.ops.unpack_cuda import unpack_decode, unpack_tables
+from prefilter_cases import EDGES, GRID, grid_filter, samples
 from tiled_cases import CASES as TILED_CASES, KINDS as TILED_KINDS, planes
 
 pytestmark = pytest.mark.cuda
@@ -850,3 +852,75 @@ def test_sharded_step_on_the_card_counts_like_the_cpu(cuda):
              < want[1].numpy()[..., None])
     np.testing.assert_array_equal(np.where(valid, got[0].cpu().numpy(), 0),
                                   np.where(valid, want[0].numpy(), 0))
+
+
+def _inverse_matches_plain(d: torch.Tensor, filt) -> None:
+    """The generic inverse on the card (one launch, none for an empty
+    input) equal to the plain version on a CPU copy."""
+    before = _kernels.launches["iir_decode"]
+    got = prefilter.prefilter_decode(d.cuda(), filt)
+    torch.cuda.synchronize()
+    assert _kernels.launches["iir_decode"] == before + (d.numel() > 0)
+    want = prefilter.iir_decode_plain(d.cpu(), filt)
+    assert got.dtype == torch.int16 and got.shape == d.shape
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("ntaps,f0", GRID)
+def test_iir_decode_matches_plain(cuda, ntaps, f0):
+    # 70 rows: two whole warps and a partial one; 600 samples: two whole
+    # tiles of 256 and a partial one, staged 16 bytes at a time
+    _inverse_matches_plain(torch.from_numpy(samples((70, 600), ntaps)),
+                           grid_filter(ntaps, f0))
+
+
+@pytest.mark.parametrize("filt", EDGES, ids=str)
+def test_iir_decode_division_edges_match_plain(cuda, filt):
+    d = samples((40, 520), 7)
+    d[0, :8] = -32768  # -32768 / -1 must wrap back to -32768
+    _inverse_matches_plain(torch.from_numpy(d), filt)
+
+
+@pytest.mark.parametrize("shape", [(33, 601), (5, 3), (1, 1), (4, 0),
+                                   (0, 9), (2, 3, 50), (3, 2049)], ids=str)
+@pytest.mark.parametrize("ntaps", [3, 12])
+def test_iir_decode_shapes_match_plain(cuda, shape, ntaps):
+    """Element-wise staging (601 samples), rows shorter than the filter,
+    empty inputs, leading axes, a tile boundary plus one sample."""
+    _inverse_matches_plain(torch.from_numpy(samples(shape, ntaps)),
+                           grid_filter(ntaps, -1))
+
+
+def test_iir_decode_misaligned_view_matches_plain(cuda):
+    flat = torch.from_numpy(samples((40 * 512 + 1,), 9)).cuda()
+    d = flat[1:].view(40, 512)  # contiguous, 2 bytes off 16-byte alignment
+    assert d.data_ptr() % 16 == 2
+    _inverse_matches_plain(d, (1, -1, 0, 1))
+
+
+@pytest.mark.parametrize("ntaps", [9, 10, 200, MAX_TAPS])
+def test_iir_decode_long_filters_match_plain(cuda, ntaps):
+    """Taps and history in shared memory past 9 taps, beyond 48 KB of it
+    (the opt-in) from about 110 taps; longer filters raise."""
+    filt = grid_filter(ntaps, 1)
+    _inverse_matches_plain(torch.from_numpy(samples((35, 300), ntaps)), filt)
+    with pytest.raises(ValueError):
+        prefilter.prefilter_decode(torch.zeros((2, 8), dtype=torch.int16,
+                                               device=cuda),
+                                   grid_filter(MAX_TAPS + 1, 1))
+
+
+@pytest.mark.parametrize("filt", [(1, 0, -1), (8, -1)], ids=str)
+def test_batch_with_a_generic_filter_matches_native(cuda, filt):
+    cfg = dt.RiceConfig(8, 7000, filt)
+    cd = cfg.to_cd_values()
+    chunks = _nab(128).reshape(4, 32, 7000)
+    _kernels.reset_launches()
+    streams = dt.compress_batch(list(chunks), cfg, device="cuda")
+    back = dt.decompress_batch(streams, cfg, device="cuda")
+    assert _kernels.launches["iir_decode"] >= 1
+    for c, s, b in zip(chunks, streams, back):
+        assert s == native_compress(c, cd)
+        np.testing.assert_array_equal(b, native_decompress(s, cd))
+        if cfg.lossless:
+            np.testing.assert_array_equal(b, c.ravel())

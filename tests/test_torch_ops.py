@@ -92,10 +92,12 @@ def test_delta_prefilter_prev0_matches_jax():
     np.testing.assert_array_equal(_np(got), np.asarray(want))
 
 
-@pytest.mark.parametrize("filt", FILTERS + [(-1,), (3,)], ids=str)
+@pytest.mark.parametrize("filt", FILTERS + [(-1,), (3,), (65536, -1), (65536,)],
+                         ids=str)
 def test_prefilter_decode_matches_jax(filt):
     # exact inverse where |filt[0]| == 1; the reference's truncating
-    # division elsewhere — the port must reproduce both
+    # division elsewhere — the port must reproduce both, and a leading tap
+    # that wraps to 0 gives -1 everywhere (XLA's division by zero)
     d = _mixed(4, 200)
     got = prefilter.prefilter_decode(torch.from_numpy(d), filt)
     want = jpre.prefilter_decode(jnp.asarray(d), filt)
