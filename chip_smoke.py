@@ -104,28 +104,36 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    (32, 7000) a rank. No window may launch B4, and B1, B2, B3, B5, B6 and
    B9 must each launch;
 13. drives the generic-filter path, whose decode ends in the generic
-   pre-filter inverse's kernel (``iir_decode``, ``csrc/prefilter.cu``, the
-   counterpart of the JAX package's ``lax.scan``), every launch in a
-   counted window: ``compress_batch`` / ``decompress_batch`` of phase 4's
-   64 Nab chunks with the (M, filter) that phase 9's ``optimize(n_taps=3)``
-   chose, with (-1, 1) and with ``LOSSY_FILTER``, ``h5.write_dataset`` /
-   ``h5.read_dataset`` of Nab 2000 x 7000 with the optimizer's choice
-   (split switch off and on), and phase 5's 8 NOPTREX chunks with
-   ``NOPTREX_FILTER`` at ``NOPTREX_FILTER_M`` (the split encode's FIR halo;
-   the decode after B2 and, switch on, after B9 + B6); every stream and
-   blob must equal native ``dr_compress``, every lossless decode the input
-   and the lossy one native ``dr_decompress``'s output, every decode and
-   read must launch ``iir_decode``, and a spy on the plain version
+   pre-filter inverse's kernels (``iir_decode``, ``csrc/prefilter.cu``,
+   the counterpart of the JAX package's ``lax.scan``: the blocked scan for
+   lossless filters of up to 8 history taps, the serial walk for the
+   rest), every launch in a counted window: ``compress_batch`` /
+   ``decompress_batch`` of phase 4's 64 Nab chunks with the (M, filter)
+   that phase 9's ``optimize(n_taps=3)`` chose, with (-1, 1) and with
+   ``LOSSY_FILTER``, ``h5.write_dataset`` / ``h5.read_dataset`` of Nab
+   2000 x 7000 with the optimizer's choice (split switch off and on), and
+   phase 5's 8 NOPTREX chunks with ``NOPTREX_FILTER`` at
+   ``NOPTREX_FILTER_M`` (the split encode's FIR halo; the decode after B2
+   and, switch on, after B9 + B6); every stream and blob must equal native
+   ``dr_compress``, every lossless decode the input and the lossy one
+   native ``dr_decompress``'s output, every decode and read must launch
+   ``iir_decode`` by the path its filter calls for (the lossy one serial,
+   the others blocked), and a spy on the plain version
    (``ops/prefilter.py::iir_decode_plain``) must see no CUDA tensor. Then
-   the kernel against its plain version (on a CPU copy), exactly: at Nab
-   (2048, 7000) with the optimizer's filter and with a seeded 12-tap
+   the kernels against their plain version (on a CPU copy), exactly, each
+   call by the path ``ops/prefilter_model.py::plan`` gives: the blocked
+   scan at Nab (2048, 7000) with the optimizer's filter and at one NOPTREX
+   h5 bucket (64, 500000) (the plain version on its first
+   ``NOPTREX_PLAIN`` rows x samples), the serial walk on a seeded 12-tap
    filter, on the division's edges (``IIR_EDGES``: a leading tap that
-   wraps to 0 gives -1 everywhere, -32768 / -1) and at one NOPTREX h5
-   bucket (64, 500000), the plain version on its first ``NOPTREX_PLAIN``
-   rows x samples; and its times with CUDA events at Nab (also with the
-   lossy filter's division) and at the NOPTREX bucket, beside the plain
-   version on the card and the parent's per-sample loop over
-   ``PARENT_PREFIX`` Nab samples;
+   wraps to 0 gives -1 everywhere, -32768 / -1) and on filters of
+   ``IIR_LONG_TAPS`` taps (history in shared, then global memory); their
+   times in CUDA graphs and in a host loop at Nab, with the lossy filter,
+   at the bucket and at one chunk (32, 500000), the blocked ones split
+   into passes A, B and C by a ``torch.profiler`` repeat, beside the
+   serial walk on the same inputs (``iir_decode_serial``, the design the
+   blocked scan replaced) and the plain version on the card; and the
+   inverse's share of the NOPTREX generic decode;
    then the JSON line of the kernels and the JSON ``ok`` line last.
 
 Each phase prints its seconds. Before the last lines it checks that no
@@ -139,6 +147,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import io
 import json
 import os
@@ -178,9 +187,9 @@ LOSSY_FILTER = (8, -1)
 MAX_WORLD = 4  # ranks of the NCCL run over several cards
 # phase 13, the generic-filter path: NOPTREX's filter, the rows x samples of
 # NOPTREX's input the plain version checks (the inverse is causal, so a
-# prefix of the input gives a prefix of the output) and times, the Nab
-# samples the parent's per-sample loop is timed over, and the division's
-# edges (a leading tap that wraps to 0, -32768 / -1, large divisors)
+# prefix of the input gives a prefix of the output) and times, and the
+# division's edges (a leading tap that wraps to 0, -32768 / -1, large
+# divisors)
 NOPTREX_FILTER = (1, -1, 0, 1)
 # its M: the filter widens NOPTREX's residuals, so at the profile's M=8 the
 # streams grow to ~24 bits a sample and the split decode's router declines
@@ -188,8 +197,12 @@ NOPTREX_FILTER = (1, -1, 0, 1)
 NOPTREX_FILTER_M = 512
 NOPTREX_PLAIN = (OPT_BUCKET, 50_000)
 NOPTREX_PLAIN_TIMED = 5_000
-PARENT_PREFIX = 700
 IIR_EDGES = ((65536, -1), (65536,), (-1,), (-32768, 5, -7), (65535, 3))
+# filters longer than the 1024 taps the card once refused: history in
+# shared memory, then (past the device's opt-in) in global memory
+IIR_LONG_TAPS = (1100, 2500)
+# the blocked scan's passes by kernel name, for the profiler's split
+IIR_PASSES = {"A": "exit_kernel", "B": "carry_kernel", "C": "walk_kernel"}
 FUZZ_CASES = 60  # phase 12's differential fuzz against the native codec
 # why no single PyTorch call computes a kernel's function (library_ms null)
 NO_LIBRARY = {
@@ -1675,6 +1688,7 @@ def phase_generic(data: dict, nab_choice, card: str) -> tuple[dict, list]:
     Returns the launches of each counted window and the kernel's rows."""
     import deltarice_tpu_torch as dt
     from deltarice_tpu_torch.ops import prefilter
+    from deltarice_tpu_torch.ops.prefilter_model import blocked
 
     m, nab_filt = nab_choice
     nab_filt = tuple(nab_filt)
@@ -1688,14 +1702,16 @@ def phase_generic(data: dict, nab_choice, card: str) -> tuple[dict, list]:
                 ("nab [-1, 1]", dt.RiceConfig(8, LENGTH, (-1, 1))),
                 (f"nab lossy {list(LOSSY_FILTER)}",
                  dt.RiceConfig(8, LENGTH, LOSSY_FILTER))):
-            windows.update(generic_batch(label, nab, cfg, (False,)))
+            windows.update(generic_batch(label, nab, cfg, (False,))[0])
         windows.update(generic_h5(nab[: H5_ROWS["nab"]],
                                   dt.RiceConfig(m, LENGTH, nab_filt)))
         noptrex = data["noptrex"]
         cfg = dt.RiceConfig(NOPTREX_FILTER_M, noptrex.shape[1],
                             NOPTREX_FILTER)
         label = f"noptrex {list(NOPTREX_FILTER)}"
-        windows.update(generic_batch(label, noptrex, cfg, (False, True)))
+        noptrex_windows, noptrex_times = generic_batch(label, noptrex, cfg,
+                                                       (False, True))
+        windows.update(noptrex_windows)
     for kernel in ("split_decode", "concentrate_wide16"):
         check(windows[f"{label} decode(split on)"].get(kernel, 0) > 0,
               f"phase 13 {label} decode(split on) never launched {kernel}")
@@ -1709,17 +1725,31 @@ def phase_generic(data: dict, nab_choice, card: str) -> tuple[dict, list]:
               f"iir_decode")
         check(n.get("transpose2d", 0) == 0, f"phase 13 {window} launched "
               f"transpose2d")
-    print(f"[13 generic] every counted decode and read launched iir_decode; "
-          f"the plain inverse saw no CUDA tensor "
+        # the path of each call follows the filter alone: the lossless
+        # filters of up to 8 history taps take the blocked scan
+        filt = (LOSSY_FILTER if "lossy" in window else NOPTREX_FILTER
+                if window.startswith("noptrex") else (-1, 1)
+                if "[-1, 1]" in window else nab_filt)
+        want = "blocked" if blocked(filt) else "serial"
+        took = {k: v for k, v in n.items() if k.startswith("iir_decode.")}
+        check(set(took) <= {f"iir_decode.{want}"}, f"phase 13 {window} took "
+              f"{took}, not iir_decode.{want}")
+    print(f"[13 generic] every counted decode and read launched iir_decode, "
+          f"the lossy filter's by the serial walk and every other by the "
+          f"blocked scan; the plain inverse saw no CUDA tensor "
           f"({len(plain_calls['iir_decode_plain'])} calls)")
-    return windows, iir_rows(nab, noptrex, nab_filt, card)
+    decode = {"ms": noptrex_times["decode(split off)"],
+              "launches": noptrex_windows[f"{label} decode(split off)"]
+              ["iir_decode"]}
+    return windows, iir_rows(nab, noptrex, nab_filt, card, decode)
 
 
-def generic_batch(label, x_np, cfg, splits) -> dict:
+def generic_batch(label, x_np, cfg, splits) -> tuple[dict, dict]:
     """``compress_batch`` / ``decompress_batch`` of ``x_np`` in chunks of
     32 rows, the decode with the split switch off (and on): every stream
     must equal native ``dr_compress``, every decode the input (native
-    ``dr_decompress``'s output where the filter is lossy)."""
+    ``dr_decompress``'s output where the filter is lossy). Returns the
+    launches of each window and the ms of each call."""
     import deltarice_tpu_torch as dt
     from deltarice_tpu_torch import native
     from deltarice_tpu_torch.ops import _kernels
@@ -1767,7 +1797,7 @@ def generic_batch(label, x_np, cfg, splits) -> dict:
           f"{'' if cfg.lossless else f' ({lost} samples lost)'}; ratio "
           f"{comp / raw:.6f}; {rates}; launches "
           f"{json.dumps(windows, sort_keys=True)}")
-    return windows
+    return windows, times
 
 
 def generic_h5(x, cfg) -> dict:
@@ -1819,30 +1849,50 @@ def generic_h5(x, cfg) -> dict:
     return windows
 
 
-def iir_rows(nab, noptrex, nab_filt, card) -> list[dict]:
-    """The generic inverse's kernel against its plain version (run on a
-    CPU copy) on the inputs the path gives it, the forward filter's
-    output: Nab (2048, 7000) with phase 9's filter, one NOPTREX h5 bucket
-    (64, 500000) with ``NOPTREX_FILTER`` (its plain version on the first
-    ``NOPTREX_PLAIN`` rows x samples), a seeded 12-tap filter and the
-    division's edges; then its times with CUDA events beside the plain
-    version's on the card and the parent's per-sample loop over
-    ``PARENT_PREFIX`` samples. Returns the Nab and NOPTREX rows."""
+def iir_rows(nab, noptrex, nab_filt, card, decode) -> list[dict]:
+    """The generic inverse's kernels against their plain version (run on a
+    CPU copy) on the inputs the path gives them, the forward filter's
+    output: the blocked scan at Nab (2048, 7000) with phase 9's filter and
+    at one NOPTREX h5 bucket (64, 500000) with ``NOPTREX_FILTER`` (its
+    plain version on the first ``NOPTREX_PLAIN`` rows x samples); the
+    serial walk on a seeded 12-tap filter, the division's edges and filters
+    of ``IIR_LONG_TAPS`` taps (history in shared, then global memory). Each
+    call's path must be the one ``prefilter_model.plan`` gives. Then the
+    times in CUDA graphs (device time) and in a host loop of CUDA events
+    (the wrapper's host cost included, as the times before the blocked
+    scan were taken): Nab, the lossy filter, the bucket and one chunk,
+    each blocked case split into passes A, B and C (``IIR_PASSES``) by one
+    ``torch.profiler`` repeat, beside the serial walk on the same inputs;
+    and the inverse's share of the NOPTREX decode (``decode``: its ms and
+    its launches of the inverse). Returns the Nab and NOPTREX rows."""
+    from deltarice_tpu_torch.ops import _kernels
     from deltarice_tpu_torch.ops.prefilter import (
         iir_decode_plain, prefilter_decode, prefilter_encode)
+    from deltarice_tpu_torch.ops.prefilter_cuda import iir_decode_serial
+    from deltarice_tpu_torch.ops.prefilter_model import plan
+    from deltarice_tpu_torch.utils.profiling import graph_ms
+
+    paths = collections.Counter()
 
     def held(d, filt, want_samples=None, prefix=None):
+        before = dict(_kernels.launches)
         got = prefilter_decode(d, filt)
         torch.cuda.synchronize()
+        took = [k.split(".", 1)[1] for k, v in _kernels.launches.items()
+                if k.startswith("iir_decode.") and v != before.get(k, 0)]
+        want_path = plan(filt, d.shape[0], d.shape[1])[0]
+        check(took == [want_path], f"iir_decode {tuple(d.shape)} filter "
+              f"{list(filt)[:12]} took {took}, not {want_path}")
+        paths[want_path] += 1
         part = d if prefix is None else d[: prefix[0], : prefix[1]]
         want = iir_decode_plain(part.cpu(), filt)
         err = max_err(got[: part.shape[0], : part.shape[1]], want)
-        check(err == 0, f"iir_decode {tuple(d.shape)} filter {list(filt)} "
-              f"disagrees with its plain version by {err}")
+        check(err == 0, f"iir_decode {tuple(d.shape)} filter "
+              f"{list(filt)[:12]} disagrees with its plain version by {err}")
         if want_samples is not None:
             check(torch.equal(got.cpu(), want_samples),
-                  f"iir_decode {tuple(d.shape)} filter {list(filt)} does "
-                  f"not give back the samples")
+                  f"iir_decode {tuple(d.shape)} filter {list(filt)[:12]} "
+                  f"does not give back the samples")
         return err
 
     rng = np.random.default_rng(0)
@@ -1858,6 +1908,10 @@ def iir_rows(nab, noptrex, nab_filt, card) -> list[dict]:
     edgec = edge.cuda()
     for filt in IIR_EDGES:
         errs.append(held(edgec, filt))
+    xs = x[:64, :2000].contiguous()
+    for ntaps in IIR_LONG_TAPS:
+        filt = (1,) + tuple(int(c) for c in rng.integers(-3, 4, ntaps - 1))
+        errs.append(held(prefilter_encode(xs.cuda(), filt), filt, xs))
     xo = torch.from_numpy(noptrex[:OPT_BUCKET])
     d_opt = prefilter_encode(xo.cuda(), NOPTREX_FILTER)
     errs.append(held(d_opt, NOPTREX_FILTER, xo, NOPTREX_PLAIN))
@@ -1865,59 +1919,83 @@ def iir_rows(nab, noptrex, nab_filt, card) -> list[dict]:
           f"{tuple(d_nab.shape)} filter {list(nab_filt)} and a 12-tap "
           f"filter {list(long_filt)} (both give back the samples), the "
           f"edges {[list(f) for f in IIR_EDGES]} on {tuple(edge.shape)}, "
-          f"NOPTREX {tuple(d_opt.shape)} filter {list(NOPTREX_FILTER)} "
-          f"(the plain version on {NOPTREX_PLAIN}; the whole bucket gives "
-          f"back the samples)")
+          f"filters of {list(IIR_LONG_TAPS)} taps on {tuple(xs.shape)} "
+          f"(give back the samples), NOPTREX {tuple(d_opt.shape)} filter "
+          f"{list(NOPTREX_FILTER)} (the plain version on {NOPTREX_PLAIN}; "
+          f"the whole bucket gives back the samples); paths "
+          f"{json.dumps(dict(sorted(paths.items())))}")
 
-    lossy_d = prefilter_encode(xc, LOSSY_FILTER)
-    ms = {"nab": cuda_ms(lambda: prefilter_decode(d_nab, nab_filt), 20),
-          "nab lossy": cuda_ms(lambda: prefilter_decode(lossy_d,
-                                                        LOSSY_FILTER), 20),
-          "noptrex": cuda_ms(lambda: prefilter_decode(d_opt,
-                                                      NOPTREX_FILTER), 5),
-          # one chunk's rows: what each launch of a batch decode takes
-          # where every chunk fills a word bucket of its own
-          "noptrex chunk": cuda_ms(lambda: prefilter_decode(
-              d_opt[:CHUNK_ROWS], NOPTREX_FILTER), 5)}
+    cases = {"nab": (d_nab, nab_filt),
+             "nab lossy": (prefilter_encode(xc, LOSSY_FILTER), LOSSY_FILTER),
+             "noptrex": (d_opt, NOPTREX_FILTER),
+             # one chunk's rows: what each launch of a batch decode takes
+             # where every chunk fills a word bucket of its own
+             "noptrex chunk": (d_opt[:CHUNK_ROWS], NOPTREX_FILTER)}
+    timed = {}
+    for key, (d, filt) in cases.items():
+        path, block, nb = plan(filt, *d.shape)
+        inverse = functools.partial(prefilter_decode, d, filt)
+        serial = functools.partial(iir_decode_serial, d, filt)
+        t = {"path": path, "block": block, "nblocks": nb,
+             "ms": graph_ms([inverse]), "host_loop_ms": cuda_ms(inverse, 20),
+             "serial_ms": graph_ms([serial], reps=5),
+             "serial_host_loop_ms": cuda_ms(serial, 5)}
+        passes = ""
+        if path == "blocked":
+            prof = profiled_rows(lambda: [inverse() for _ in range(5)],
+                                 IIR_PASSES.values())
+            t["passes_ms"] = {k: per_call(prof, name, 1)
+                              for k, name in IIR_PASSES.items()}
+            passes = " = passes " + ", ".join(
+                f"{k} {ms_text(v)}" for k, v in t["passes_ms"].items()) + (
+                " (torch.profiler, 5 calls)")
+        timed[key] = t
+        print(f"[13 generic] iir_decode {key} {tuple(d.shape)} filter "
+              f"{list(filt)}: {path}, blocks of {block} x {nb}: "
+              f"{t['ms']:.4f} ms in a CUDA graph{passes}, "
+              f"{t['host_loop_ms']:.4f} ms in a host loop; the serial walk "
+              f"(the design before the blocked scan) on the same input "
+              f"{t['serial_ms']:.4f} ms in a graph, "
+              f"{t['serial_host_loop_ms']:.4f} ms in a host loop; {card}")
     plain = {"nab": cuda_ms(lambda: iir_decode_plain(d_nab, nab_filt), 1),
-             "parent": cuda_ms(lambda: iir_decode_plain(
-                 d_nab[:, :PARENT_PREFIX], nab_filt), 3),
              "noptrex": cuda_ms(lambda: iir_decode_plain(
                  d_opt[:, :NOPTREX_PLAIN_TIMED], NOPTREX_FILTER), 1)}
-    per_sample = plain["parent"] / PARENT_PREFIX * 1e3
+    chunk = timed["noptrex chunk"]
+    share = decode["launches"] * chunk["ms"] / decode["ms"]
+    print(f"[13 generic] the inverse's share of the NOPTREX generic decode "
+          f"(split off): {decode['launches']} launches x {chunk['ms']:.4f} "
+          f"ms (one chunk, in a graph) = "
+          f"{decode['launches'] * chunk['ms']:.4f} ms of "
+          f"{decode['ms']:.4f} ms = {100 * share:.2f} %; {card}")
     rows = []
     for key, d, filt in (("nab", d_nab, nab_filt),
                          ("noptrex", d_opt, NOPTREX_FILTER)):
         moved = 2 * nbytes(d)  # each sample read once and written once
+        t = timed[key]
         row = kernel_row("iir_decode", "deltarice_tpu_torch/csrc/prefilter.cu",
                          "deltarice_tpu/ops/prefilter.py:81", max(errs),
-                         ms[key], plain[key], list(d.shape), moved, None,
+                         t["ms"], plain[key], list(d.shape), moved, None,
                          key)
-        row["filter"] = list(filt)
+        row.update({k: v for k, v in t.items() if k != "ms"})
+        row.update({"filter": list(filt), "ms_by": "cuda graph",
+                    "design_bytes": 3 * nbytes(d)})  # A reads, C reads+writes
         if key == "noptrex":
             row.update({"plain_shape": [OPT_BUCKET, NOPTREX_PLAIN_TIMED],
-                        "chunk_ms": ms["noptrex chunk"],
-                        "chunk_shape": [CHUNK_ROWS, d.shape[1]]})
+                        "chunk": {k: v for k, v in chunk.items()},
+                        "chunk_shape": [CHUNK_ROWS, d.shape[1]],
+                        "decode_ms": decode["ms"],
+                        "decode_launches": decode["launches"],
+                        "decode_share": share})
         else:
-            row.update({"lossy_ms": ms["nab lossy"],
-                        "lossy_filter": list(LOSSY_FILTER),
-                        "parent_loop_ms": plain["parent"],
-                        "parent_loop_shape": [nab.shape[0], PARENT_PREFIX],
-                        "parent_us_per_sample": per_sample})
+            row.update({"lossy": timed["nab lossy"],
+                        "lossy_filter": list(LOSSY_FILTER)})
         rows.append(row)
         print(f"[13 generic] iir_decode {tuple(d.shape)} filter {list(filt)}"
-              f": kernel {ms[key]:.4f} ms, bound {bound_ms(moved):.4f} ms "
-              f"({moved} B over 3.35 TB/s), plain on the card "
-              f"{plain[key]:.4f} ms"
+              f": {t['ms']:.4f} ms, bound {bound_ms(moved):.4f} ms "
+              f"({moved} B over 3.35 TB/s; the blocked design moves "
+              f"{3 * nbytes(d)} B), plain on the card {plain[key]:.4f} ms"
               f"{'' if key == 'nab' else f' on {NOPTREX_PLAIN_TIMED} samples'}"
               f"; {card}")
-    print(f"[13 generic] iir_decode Nab lossy {list(LOSSY_FILTER)} (the "
-          f"division): {ms['nab lossy']:.4f} ms; NOPTREX ({CHUNK_ROWS}, "
-          f"{d_opt.shape[1]}) (one chunk): {ms['noptrex chunk']:.4f} ms; "
-          f"the parent's per-sample "
-          f"loop (the plain version) on the card over ({nab.shape[0]}, "
-          f"{PARENT_PREFIX}): {plain['parent']:.4f} ms = {per_sample:.2f} us "
-          f"a sample; {card}")
     return rows
 
 

@@ -137,12 +137,30 @@ int dr_split_decode(const int32_t *words, const int32_t *wv, int16_t *local,
  * out[i - j]) / f0, truncating, wrapped to int16; f0 is taken mod 2^16
  * (0 gives -1 everywhere, XLA's division by zero; +-1 divides by
  * nothing). taps: nhist int16s on the device (may be NULL when nhist is
- * 0); nhist < DR_IIR_MAX_TAPS, else cudaErrorInvalidValue. Nothing is
- * launched when rows or n is 0. */
-#define DR_IIR_MAX_TAPS 1024
+ * 0); any nhist. Nothing is launched when rows or n is 0.
+ *
+ * dr_iir_decode walks each row serially, one thread a row. A filter of
+ * more than 8 history taps whose ring does not fit in the device's shared
+ * memory needs ring: dr_iir_ring_bytes(nhist, rows) bytes on the device
+ * (NULL when that is 0), else cudaErrorInvalidValue.
+ *
+ * dr_iir_blocked, for f0 == +-1 mod 2^16 and nhist <= 8 only: the blocked
+ * scan, rows cut into blocks of `block` samples (a multiple of 8). trans:
+ * the nhist x nhist int16 transition of a block (row-major, the sign of f0
+ * folded into the taps; ops/prefilter_model.py::block_transition); carry:
+ * (ceil(n / block) - 1, rows, 8) int16 scratch, 16-byte aligned. Both may
+ * be NULL when n <= block or nhist == 0 (one walk). Launches pass A
+ * (exit_kernel, exit histories), B (carry_kernel, the carry scan) and C
+ * (walk_kernel, the final walk); A and B only where a row has more than
+ * one block and the filter a history. */
+int64_t dr_iir_ring_bytes(int64_t nhist, int64_t rows);
 int dr_iir_decode(const int16_t *d, int16_t *out, const int16_t *taps,
-                  int64_t nhist, int f0, int64_t rows, int64_t n,
+                  int64_t nhist, int f0, int64_t rows, int64_t n, void *ring,
                   void *stream);
+int dr_iir_blocked(const int16_t *d, int16_t *out, const int16_t *taps,
+                   const int16_t *trans, int16_t *carry, int64_t nhist,
+                   int f0, int64_t rows, int64_t n, int64_t block,
+                   void *stream);
 
 #ifdef __cplusplus
 }

@@ -51,11 +51,14 @@ _SIGNATURES = {
                                 _P, _P],
     "dr_split_decode": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
                         _I, _I, _I, _P],
-    "dr_iir_decode": [_P, _P, _P, _I64, _I, _I64, _I64, _P],
+    "dr_iir_decode": [_P, _P, _P, _I64, _I, _I64, _I64, _P, _P],
+    "dr_iir_blocked": [_P, _P, _P, _P, _P, _I64, _I, _I64, _I64, _I64, _P],
 }
 
-#: scratch sizes the kernels' wrappers allocate: (length or words, nseg)
-_SIZES = ("dr_pack_scratch_words", "dr_unpack_scratch_bytes")
+#: scratch sizes the kernels' wrappers allocate: (length or words, nseg),
+#: and (history taps, rows) for the generic inverse's global ring
+_SIZES = ("dr_pack_scratch_words", "dr_unpack_scratch_bytes",
+          "dr_iir_ring_bytes")
 
 #: kernel launches per wrapper name, counted where each wrapper launches
 #: its kernel and nowhere else

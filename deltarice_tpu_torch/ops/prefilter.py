@@ -18,9 +18,10 @@ Semantics match the reference filter byte for byte:
 
 The encode and the delta inverse run as torch ops on the tensor's own
 device (the codec's delta path fuses them into B1 and B2 instead). The
-generic inverse launches the CUDA kernel of :mod:`.prefilter_cuda` on a
-CUDA tensor; :func:`iir_decode_plain` is its plain version, which a CPU
-tensor takes.
+generic inverse launches the CUDA kernels of :mod:`.prefilter_cuda` on a
+CUDA tensor (the blocked scan of :mod:`.prefilter_model` for lossless
+filters of up to 8 history taps, a serial walk for the rest);
+:func:`iir_decode_plain` is its plain version, which a CPU tensor takes.
 """
 
 from __future__ import annotations
@@ -30,12 +31,8 @@ import torch
 from ..config import DELTA_FILTER
 from . import _kernels
 from .prefilter_cuda import iir_decode
+from .prefilter_model import c16
 from .rice import wrap16
-
-
-def c16(c: int) -> int:
-    """Filter coefficient reduced mod 2**16 into the int16 range."""
-    return ((int(c) & 0xFFFF) ^ 0x8000) - 0x8000
 
 
 def _shift_right(x: torch.Tensor, j: int) -> torch.Tensor:
@@ -74,7 +71,7 @@ def prefilter_decode(d: torch.Tensor,
     """Invert the causal pre-filter along the last axis; returns int16.
 
     The delta inverse is a prefix sum in torch ops. Any other filter
-    launches the CUDA kernel (:func:`.prefilter_cuda.iir_decode`) on a
+    launches the CUDA kernels (:func:`.prefilter_cuda.iir_decode`) on a
     CUDA tensor and takes :func:`iir_decode_plain` on a CPU tensor; any
     other device raises."""
     if tuple(filt) == DELTA_FILTER:
@@ -86,22 +83,33 @@ def prefilter_decode(d: torch.Tensor,
 
 def iir_decode_plain(d: torch.Tensor, filt: tuple[int, ...]) -> torch.Tensor:
     """Plain version of the generic inverse: one step per sample,
-    vectorised over the leading axes. filt[0] == 1 or -1 gives exact
-    reconstruction; other leading coefficients replicate the reference's
-    truncating division (lossy in general), and one that wraps to 0 gives
-    -1 everywhere, as XLA's integer division by zero does in the JAX
-    package."""
+    vectorised over the leading axes, the history's sum one int64 dot of
+    the zero-prefixed outputs with the reversed taps (each product is below
+    2**30 and wrapping mod 2**16 commutes with the sum, so it is wrapped
+    once). filt[0] == 1 or -1 gives exact reconstruction; other leading
+    coefficients replicate the reference's truncating division (lossy in
+    general), and one that wraps to 0 gives -1 everywhere, as XLA's integer
+    division by zero does in the JAX package."""
     d = d.to(torch.int64)
     f0 = c16(filt[0])
-    taps = [c16(c) for c in filt[1:]]
-    out = torch.empty_like(d)
-    for i in range(d.shape[-1]):
-        num = d[..., i]
-        for j, c in enumerate(taps[:i], start=1):
-            num = wrap16(num - wrap16(out[..., i - j] * c))
-        if f0 == 0:
-            num = torch.full_like(num, -1)
-        elif f0 != 1:
-            num = torch.div(num, f0, rounding_mode="trunc")
-        out[..., i] = wrap16(num)
-    return out.to(torch.int16)
+    nh = len(filt) - 1
+    if nh == 0:
+        return _finish(d, f0).to(torch.int16)
+    rev = torch.tensor([c16(c) for c in filt[:0:-1]], dtype=torch.int64,
+                       device=d.device)  # c_nh ... c_1
+    n = d.shape[-1]
+    hist = torch.zeros(d.shape[:-1] + (nh + n,), dtype=torch.int64,
+                       device=d.device)  # out[i] at nh + i
+    for i in range(n):
+        num = wrap16(d[..., i] - (hist[..., i: i + nh] * rev).sum(-1))
+        hist[..., nh + i] = _finish(num, f0)
+    return hist[..., nh:].to(torch.int16)
+
+
+def _finish(num: torch.Tensor, f0: int) -> torch.Tensor:
+    """The quotient of the wrapped numerator by f0, wrapped to int16."""
+    if f0 == 0:
+        return torch.full_like(num, -1)
+    if f0 != 1:
+        num = torch.div(num, f0, rounding_mode="trunc")
+    return wrap16(num)

@@ -14,6 +14,8 @@ kernels' plain versions; the default ``cuda`` needs a card):
   card's copy rates;
 * :mod:`.scaling_bench`: weak scaling of ``parallel.multihost`` over 1, 2
   and 4 ranks;
+* :mod:`.iir_blocks`: the generic inverse's blocked scan timed over block
+  lengths (no JAX counterpart);
 * :mod:`.memstore`: the in-memory direct-chunk store the tools use where
   h5py is missing.
 

@@ -9,6 +9,12 @@ memory) with leading taps that invert exactly (1, -1), divide (2, 8, -3,
 -32768) and wrap mod 2**16 (65535 is -1). The other taps are seeded, some
 past the int16 range so that they wrap too. The data puts 32767, -32767 and -32768 among
 uniform int16 samples.
+
+The blocked grid (the blocked scan of lossless filters of up to 8 history
+taps, ``ops/prefilter_model.py`` on the CPU and the kernel on the card)
+crosses six such filters with block lengths 8, 96 and 256, rows shorter
+than a block, of one block, of three and of three plus one sample, and 1
+and 33 rows.
 """
 
 import numpy as np
@@ -22,6 +28,17 @@ GRID = [(n, f0) for n in NTAPS for f0 in F0S]  # (ntaps, f0) of each case
 EDGES = ((65536, -1), (65536,), (-65536, 3, 1), (-1,), (-1, 1),
          (-32768, 5, -7), (65535, 3), (32767, -1), (1, -1, 0, 1),
          (1, 0, -1), (8, -1))
+
+
+BLOCKED_FILTERS = ((1, -1, 0, 1), (1, 0, -1), (-1, 1), (1,),
+                   (-1, 32767, -32768), (65535, 3, -7, 11, 2, -5, 9, 1, -3))
+BLOCKS = (8, 96, 256)
+
+
+def blocked_grid() -> list[tuple]:
+    """(filter, block length, samples a row, rows) of each case."""
+    return [(f, b, n, rows) for f in BLOCKED_FILTERS for b in BLOCKS
+            for n in (b // 2 + 1, b, 3 * b, 3 * b + 1) for rows in (1, 33)]
 
 
 def grid_filter(ntaps: int, f0: int) -> tuple[int, ...]:

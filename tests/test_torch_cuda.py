@@ -18,7 +18,9 @@ from deltarice_tpu_torch import codec
 from deltarice_tpu_torch.models import get_profile
 from deltarice_tpu_torch.native import native_compress, native_decompress
 from deltarice_tpu_torch.ops import _kernels, prefilter
-from deltarice_tpu_torch.ops.prefilter_cuda import MAX_TAPS
+from deltarice_tpu_torch.ops import prefilter_model
+from deltarice_tpu_torch.ops.prefilter_cuda import (
+    iir_decode, iir_decode_serial)
 from deltarice_tpu_torch.ops.concentrate_cuda import (
     DEAD,
     biased_plane,
@@ -46,7 +48,7 @@ from deltarice_tpu_torch.ops.split_decode_cuda import (
 )
 from deltarice_tpu_torch.ops.tiled_model import decode_tiled
 from deltarice_tpu_torch.ops.unpack_cuda import unpack_decode, unpack_tables
-from prefilter_cases import EDGES, GRID, grid_filter, samples
+from prefilter_cases import EDGES, GRID, blocked_grid, grid_filter, samples
 from tiled_cases import CASES as TILED_CASES, KINDS as TILED_KINDS, planes
 
 pytestmark = pytest.mark.cuda
@@ -854,16 +856,30 @@ def test_sharded_step_on_the_card_counts_like_the_cpu(cuda):
                                   np.where(valid, want[0].numpy(), 0))
 
 
-def _inverse_matches_plain(d: torch.Tensor, filt) -> None:
-    """The generic inverse on the card (one launch, none for an empty
-    input) equal to the plain version on a CPU copy."""
-    before = _kernels.launches["iir_decode"]
-    got = prefilter.prefilter_decode(d.cuda(), filt)
+def _inverse_matches_plain(d: torch.Tensor, filt, block=None) -> str:
+    """The generic inverse on the card (one call of one path, none for an
+    empty input) equal to the plain version on a CPU copy; returns the
+    path the call took."""
+    before = dict(_kernels.launches)
+    if block is None:
+        got = prefilter.prefilter_decode(d.cuda(), filt)
+    else:
+        got = iir_decode(d.cuda(), filt, block)
     torch.cuda.synchronize()
-    assert _kernels.launches["iir_decode"] == before + (d.numel() > 0)
+    grew = {k: v - before.get(k, 0) for k, v in _kernels.launches.items()
+            if v != before.get(k, 0)}
+    paths = [k.split(".")[1] for k in grew if k.startswith("iir_decode.")]
+    if d.numel() == 0:
+        assert not grew
+    else:
+        n = d.shape[-1]
+        want_path = prefilter_model.plan(tuple(filt), d.numel() // n, n,
+                                         block)[0]
+        assert grew == {"iir_decode": 1, f"iir_decode.{want_path}": 1}
     want = prefilter.iir_decode_plain(d.cpu(), filt)
     assert got.dtype == torch.int16 and got.shape == d.shape
     assert torch.equal(got.cpu(), want)
+    return paths[0] if paths else ""
 
 
 @pytest.mark.parametrize("ntaps,f0", GRID)
@@ -898,16 +914,85 @@ def test_iir_decode_misaligned_view_matches_plain(cuda):
     _inverse_matches_plain(d, (1, -1, 0, 1))
 
 
-@pytest.mark.parametrize("ntaps", [9, 10, 200, MAX_TAPS])
+@pytest.mark.parametrize("ntaps", [9, 10, 200, 1024, 1025, 2500, 60000])
 def test_iir_decode_long_filters_match_plain(cuda, ntaps):
-    """Taps and history in shared memory past 9 taps, beyond 48 KB of it
-    (the opt-in) from about 110 taps; longer filters raise."""
+    """9 taps: the blocked scan's longest filter. Past it the serial walk:
+    taps and history in shared memory, beyond 48 KB of it from about 110
+    taps; past the device's opt-in (about 1500 taps on an H100) the
+    history ring in global memory and the taps read through L1. No length
+    is refused."""
     filt = grid_filter(ntaps, 1)
-    _inverse_matches_plain(torch.from_numpy(samples((35, 300), ntaps)), filt)
-    with pytest.raises(ValueError):
-        prefilter.prefilter_decode(torch.zeros((2, 8), dtype=torch.int16,
-                                               device=cuda),
-                                   grid_filter(MAX_TAPS + 1, 1))
+    shape = (35, 300) if ntaps < 60000 else (3, 300)
+    d = torch.from_numpy(samples(shape, ntaps))
+    path = _inverse_matches_plain(d, filt)
+    assert path == ("blocked" if ntaps <= 9 else "serial")
+    ring = _kernels.library().dr_iir_ring_bytes(ntaps - 1, shape[0])
+    assert (ring > 0) == (ntaps >= 2500)
+
+
+@pytest.mark.parametrize("filt", [(1, -1, 0, 1), (8, -1)], ids=str)
+def test_iir_decode_serial_matches_plain(cuda, filt):
+    """The serial walk on demand, whatever path the filter routes to: the
+    design the blocked scan replaced, which phase 13 times beside it."""
+    d = torch.from_numpy(samples((70, 1600), 3))
+    before = dict(_kernels.launches)
+    got = iir_decode_serial(d.cuda(), filt)
+    torch.cuda.synchronize()
+    grew = {k: v - before.get(k, 0) for k, v in _kernels.launches.items()
+            if v != before.get(k, 0)}
+    assert grew == {"iir_decode_serial": 1}
+    assert torch.equal(got.cpu(), prefilter.iir_decode_plain(d, filt))
+
+
+@pytest.mark.parametrize("filt,block,n,rows", blocked_grid(), ids=str)
+def test_iir_decode_blocked_grid_matches_plain(cuda, filt, block, n, rows):
+    """The blocked scan (passes A, B, C; one walk where a row is one block
+    or the filter has no history) at forced block lengths, on the grid the
+    CPU tests hold its plain model to."""
+    d = torch.from_numpy(samples((33, n), n)[:rows])
+    path = _inverse_matches_plain(d, filt, block)
+    nb = -(-n // block)
+    assert path == ("blocked" if nb > 1 and len(filt) > 1 else "one_walk")
+
+
+@pytest.mark.parametrize("filt", [(1, -1, 0, 1), (-1, 1)], ids=str)
+def test_iir_decode_blocked_edges_match_plain(cuda, filt):
+    """Element-wise staging (n % 8 != 0; a view off 16 bytes), and one row
+    of 500,000 samples: 1954 blocks carried in chunks of 64 (the plain
+    version on a prefix: the inverse is causal; the whole row must give
+    back the samples it was filtered from)."""
+    assert _inverse_matches_plain(
+        torch.from_numpy(samples((40, 1203), 4)), filt) == "blocked"
+    flat = torch.from_numpy(samples((40 * 1024 + 1,), 9)).cuda()
+    view = flat[1:].view(40, 1024)
+    assert view.data_ptr() % 16 == 2
+    assert _inverse_matches_plain(view, filt, 256) == "blocked"
+    x = torch.from_numpy(get_profile("noptrex").synthetic(1, seed=2))
+    d = prefilter.prefilter_encode(x.cuda(), filt)
+    got = prefilter.prefilter_decode(d, filt)
+    torch.cuda.synchronize()
+    assert prefilter_model.plan(filt, 1, x.shape[1])[:2] == ("blocked", 256)
+    assert torch.equal(got.cpu(), x)
+    want = prefilter.iir_decode_plain(d[:, :20000].cpu(), filt)
+    assert torch.equal(got[:, :20000].cpu(), want)
+
+
+def test_batch_with_a_long_filter_matches_native(cuda):
+    """A filter of 1100 taps, longer than the 1024 the card once refused,
+    through compress_batch / decompress_batch on the card."""
+    rng = np.random.default_rng(5)
+    filt = (1,) + tuple(int(c) for c in rng.integers(-3, 4, 1099))
+    cfg = dt.RiceConfig(8, 2000, filt)
+    cd = cfg.to_cd_values()
+    chunks = _nab(16, length=2000).reshape(4, 4, 2000)
+    _kernels.reset_launches()
+    streams = dt.compress_batch(list(chunks), cfg, device="cuda")
+    back = dt.decompress_batch(streams, cfg, device="cuda")
+    assert _kernels.launches["iir_decode.serial"] >= 1
+    for c, s, b in zip(chunks, streams, back):
+        assert s == native_compress(c, cd)
+        np.testing.assert_array_equal(b, native_decompress(s, cd))
+        np.testing.assert_array_equal(b, c.ravel())
 
 
 @pytest.mark.parametrize("filt", [(1, 0, -1), (8, -1)], ids=str)

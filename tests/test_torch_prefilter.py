@@ -10,9 +10,6 @@ kernel itself is held against the plain version on the card by
 ``tests/test_torch_cuda.py``.
 """
 
-import re
-from pathlib import Path
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -72,6 +69,15 @@ def test_plain_inverse_matches_jax_on_odd_shapes(shape, ntaps):
     np.testing.assert_array_equal(got, _jax(d, filt))
 
 
+@pytest.mark.parametrize("ntaps", [1025, 1026, 2500])
+def test_plain_inverse_matches_jax_on_long_filters(ntaps):
+    """Filters of any length (the card's serial walk keeps their history in
+    shared or global memory; nothing refuses them)."""
+    filt = grid_filter(ntaps, 1)
+    d = samples((2, 1100), ntaps)
+    np.testing.assert_array_equal(_plain(d, filt), _jax(d, filt))
+
+
 def test_prefilter_decode_on_the_cpu_never_touches_the_kernels(monkeypatch):
     def refuse(*_a, **_k):
         raise AssertionError("the CPU path reached the kernel")
@@ -90,16 +96,9 @@ def test_unsupported_devices_raise():
     meta = torch.empty((2, 8), dtype=torch.int16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         prefilter.prefilter_decode(meta, (1, 0, -1))
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        prefilter_cuda.iir_decode(torch.zeros((2, 8), dtype=torch.int16),
-                                  (1, 0, -1))
-
-
-def test_tap_limit_is_the_kernels():
-    header = (Path(prefilter_cuda.__file__).parents[1] / "csrc"
-              / "kernels.h").read_text()
-    limit = re.search(r"#define DR_IIR_MAX_TAPS (\d+)", header)
-    assert limit and int(limit.group(1)) == prefilter_cuda.MAX_TAPS
+    for entry in (prefilter_cuda.iir_decode, prefilter_cuda.iir_decode_serial):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            entry(torch.zeros((2, 8), dtype=torch.int16), (1, 0, -1))
 
 
 def test_taps_wrap_into_int16():
@@ -133,6 +132,32 @@ def test_batch_with_generic_filters_matches_jax_and_native(filt):
         np.testing.assert_array_equal(b, native_decompress(s, cd))
         if cfg.lossless:
             np.testing.assert_array_equal(b, c)
+
+
+def _long_filters():
+    rng = np.random.default_rng(3)
+    dense = (1,) + tuple(int(c) for c in rng.integers(-3, 4, 1025))
+    return [dense, (1,) + (0,) * 1100 + (-1,)]
+
+
+@pytest.mark.parametrize("filt", _long_filters(), ids=lambda f: f"{len(f)}taps")
+def test_long_filter_round_trip_matches_native(filt):
+    """A filter of more than 1024 taps (1026 dense, 1102 sparse) through
+    ``compress_batch`` / ``decompress_batch`` on the CPU equals native
+    ``dr_compress`` / ``dr_decompress`` and gives back the samples (the
+    JAX package's encode of such a filter takes minutes, so native C is
+    the oracle here)."""
+    cfg = dt.RiceConfig(8, 1100, filt)
+    cd = cfg.to_cd_values()
+    assert len(cd) > 1024
+    chunks = list(get_profile("nab").synthetic(4, seed=4, length=1100)
+                  .reshape(2, 2, 1100))
+    streams = dt.compress_batch(chunks, cfg, device=CPU)
+    for c, s, b in zip(chunks, streams,
+                       dt.decompress_batch(streams, cfg, device=CPU)):
+        assert s == native_compress(c, cd)
+        np.testing.assert_array_equal(b, native_decompress(s, cd))
+        np.testing.assert_array_equal(b, c.ravel())
 
 
 def test_leftover_segment_with_a_generic_filter_matches_jax():

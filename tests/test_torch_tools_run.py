@@ -19,13 +19,15 @@ import pytest
 import torch
 
 import deltarice_tpu as drt
-from deltarice_tpu_torch.tools import (fuzz_native, profile_stages,
+from deltarice_tpu_torch.ops import prefilter_model
+from deltarice_tpu_torch.tools import (fuzz_native, iir_blocks, profile_stages,
                                        scaling_bench, singlechip_scaling)
 
 REPO = Path(__file__).resolve().parent.parent
 MODULES = ["bench", "tools", "tools.memstore", "tools.bench_geometries",
            "tools.bench_file", "tools.fuzz_native", "tools.profile_stages",
-           "tools.singlechip_scaling", "tools.scaling_bench"]
+           "tools.singlechip_scaling", "tools.scaling_bench",
+           "tools.iir_blocks"]
 # each tool's command line without --device: it must refuse to run
 TOOL_ARGV = {
     "tools.bench_geometries": ["--rows", "2"],
@@ -34,6 +36,7 @@ TOOL_ARGV = {
     "tools.profile_stages": ["4", "7000", "8"],
     "tools.singlechip_scaling": ["--store", "memory"],
     "tools.scaling_bench": ["--devices", "1"],
+    "tools.iir_blocks": ["--samples", "512"],
 }
 
 
@@ -98,6 +101,22 @@ def test_profile_stages_on_the_cpu():
     x = profile_stages.make_data(4, 7000)
     assert rep["ratio"] == len(drt.compress(x, drt.RiceConfig(8, 7000))) \
         / x.nbytes
+
+
+def test_iir_blocks_on_the_cpu(capsys):
+    """The block-length sweep of the generic inverse on the plain model:
+    every case at every length, and the length the shape chooses."""
+    assert iir_blocks.main(["--device", "cpu", "--samples", "1024",
+                            "--blocks", "256,512"]) == 0
+    rep = json.loads(capsys.readouterr().out)
+    assert rep["platform"] == "cpu" and rep["card"] is None
+    assert [c["case"] for c in rep["cases"]] == [
+        "nab", "noptrex bucket", "noptrex chunk"]
+    for c in rep["cases"]:
+        assert sorted(c["ms"]) == ["256", "512"]
+        assert all(v > 0 for v in c["ms"].values())
+        assert c["fastest"] in (256, 512)
+        assert c["chosen"] == prefilter_model.choose_block(*c["shape"])
 
 
 def test_singlechip_scaling_keys():
