@@ -134,6 +134,34 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    serial walk on the same inputs (``iir_decode_serial``, the design the
    blocked scan replaced) and the plain version on the card; and the
    inverse's share of the NOPTREX generic decode;
+14. feeds the port hostile streams at the full chunk shapes of Nab, nEDM
+   and NOPTREX (``tests/hostile_cases.py``, imported by path, the corpus
+   ``tests/test_torch_robustness.py`` holds against the JAX package on the
+   CPU): truncations, single-bit flips, lying totals, the empty stream,
+   one segment credited with every word, bad payloads behind valid
+   headers, and flips of Nab's generic-filter streams. Each stream that
+   fails the header walk goes through ``decompress`` on the card alone;
+   the rest go through one ``decompress_batch`` with the split switch off
+   and on. Every outcome must equal the reference's (both raise
+   ``ValueError``, or both return equal arrays): the port's CPU decode
+   for Nab, native ``dr_decompress`` for nEDM and NOPTREX (whose plain
+   decode takes minutes a corpus; the CPU tests hold the two equal). A
+   valid decode after each corpus must be exact. Then verify-retry: a
+   transient payload fault and a cut header through ``compress_batch
+   (verify=True)`` (Nab, and 8 chunks of each long geometry, whose
+   re-encodes merge through B3 and B5) recover to native ``dr_compress``'s
+   bytes, split switch off and on, and a persistent fault raises
+   ``RuntimeError``; ``h5.write_dataset(verify=True)`` repairs a fault in
+   the second of three windows, a read with a truncated chunk raises
+   ``ValueError`` and the next read is exact. These runs are counted
+   (path ``hostile``) and must launch B1, B2, B3, B5, B6, B9 and the
+   generic inverse. Then B2, B9 + B6 and the inverse on hostile words
+   with each input before two random guard tails (equal outputs; equal to
+   the plain version at Nab), and a subprocess (``chip_smoke.py
+   --memcheck``: one corrupt bucket of each geometry, split off and on,
+   and a verify-retry each) under ``compute-sanitizer --tool memcheck``,
+   whose summary must be 0 errors; where the toolkit has no
+   compute-sanitizer, or it refuses the card, it prints "not checked";
    then the JSON line of the kernels and the JSON ``ok`` line last.
 
 Each phase prints its seconds. Before the last lines it checks that no
@@ -204,6 +232,17 @@ IIR_LONG_TAPS = (1100, 2500)
 # the blocked scan's passes by kernel name, for the profiler's split
 IIR_PASSES = {"A": "exit_kernel", "B": "carry_kernel", "C": "walk_kernel"}
 FUZZ_CASES = 60  # phase 12's differential fuzz against the native codec
+# phase 14, hostile streams at the full chunk shapes: single-bit flips of
+# each geometry's stream (NOPTREX's batch must stay within the split
+# router's 16384 sub-rows at 32 parts), at most this many truncations, the
+# flips of each generic filter's stream, and the memcheck subprocess's
+# flips a stream and time limit
+HOSTILE_FLIPS = {"nab": 300, "nedm": 32, "noptrex": 12}
+HOSTILE_CUTS = 64
+HOSTILE_FILTER_FLIPS = 24
+MEMCHECK_FLIPS = 6
+MEMCHECK_TIMEOUT = 600
+GUARD = 1 << 16  # random elements after a kernel's input in phase 14
 # why no single PyTorch call computes a kernel's function (library_ms null)
 NO_LIBRARY = {
     "pack_encode": "no PyTorch call Rice-codes or bit-packs",
@@ -1999,6 +2038,441 @@ def iir_rows(nab, noptrex, nab_filt, card, decode) -> list[dict]:
     return rows
 
 
+def hostile_cases():
+    """``tests/hostile_cases.py``, imported by path: the card's machine runs
+    this script from the root of a checkout, where ``tests`` is no
+    package."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "hostile_cases", ROOT / "tests" / "hostile_cases.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def faulty_frames(hc, fault: str, calls: set):
+    """``codec.frame_stream`` wrapped by ``hostile_cases.faulty_frames``
+    inside the block: the numbered calls' streams get a payload bit flipped
+    or are cut to 6 bytes. Yields the count of calls made."""
+    from deltarice_tpu_torch import codec
+
+    real = codec.frame_stream
+    codec.frame_stream = hc.faulty_frames(calls, real, fault)
+    try:
+        yield codec.frame_stream.count
+    finally:
+        codec.frame_stream = real
+
+
+def hostile_reference(name, cfg):
+    """What a card decode of a hostile stream is held to, one stream and a
+    batch: the port's CPU decode for Nab; for nEDM and NOPTREX, whose plain
+    decode steps through 81920 and 500000 samples a call (minutes for the
+    corpus), native ``dr_decompress``, which
+    ``tests/test_torch_robustness.py`` holds equal to the port's CPU decode
+    and the JAX package's on every family of the corpus."""
+    import deltarice_tpu_torch as dt
+    from deltarice_tpu_torch.native import native_decompress
+
+    if name.startswith("nab"):
+        return ("the port's CPU decode",
+                lambda s: dt.decompress(s, cfg, device="cpu"),
+                lambda b: dt.decompress_batch(b, cfg, device="cpu"))
+    cd = cfg.to_cd_values()
+    return ("native dr_decompress",
+            lambda s: native_decompress(s, cd),
+            lambda b: [native_decompress(s, cd) for s in b])
+
+
+def hostile_corpus(hc, name, cfg, chunk, flips, generic=False) -> dict:
+    """The corpus of one valid stream of ``chunk`` through ``decompress``
+    (a stream a call) and ``decompress_batch`` (the walkable streams of the
+    original total, split switch off and on) on the card, against
+    :func:`hostile_reference`; a valid decode after each case is exact."""
+    import deltarice_tpu_torch as dt
+    from deltarice_tpu_torch import codec
+    from deltarice_tpu_torch.native import native_compress
+
+    t0 = time.perf_counter()
+    cd = cfg.to_cd_values()
+    blob = dt.compress(chunk, cfg, device="cuda")
+    check(blob == native_compress(chunk, cd), f"hostile {name} {cfg.filt}: "
+          f"the clean stream differs from native")
+    total, nseg = chunk.size, cfg.segments(chunk.size)[0]
+    if generic:
+        cases = hc.flips(blob, flips) + hc.bad_payloads(blob, nseg)
+    else:
+        stride = 97 * max(1, -(-len(blob) // (97 * HOSTILE_CUTS)))
+        cases = hc.corpus(blob, nseg, flips, stride)
+    label, ref_one, ref_batch = hostile_reference(name, cfg)
+    kinds = collections.Counter()
+    batch = hc.batchable([s for _c, s in cases], nseg, total)
+    for case, s in cases:
+        if s in batch:
+            continue
+        got = hc.outcome(lambda b: dt.decompress(b, cfg, device="cuda"), s)
+        want = hc.outcome(ref_one, s)
+        check(hc.same(got, want), f"hostile {name} {case}: the card "
+              f"{got[0]}, {label} {want[0]}")
+        kinds[got[0]] += 1
+    torch.cuda.synchronize()
+    want = [("returned", np.asarray(r)) for r in ref_batch(batch)]
+    for on in (False, True):
+        split_switch(on)
+        with captured([(codec, "unpack_decode_split")]) as (calls, _ms):
+            handle = codec.decompress_batch_dispatch(batch, cfg, "cuda")
+            got = codec.decompress_batch_collect(handle)
+        for i, (g, w) in enumerate(zip(got, want)):
+            check(hc.same(("returned", g), w), f"hostile {name} batch "
+                  f"stream {i} (split {'on' if on else 'off'}) differs from "
+                  f"{label}")
+    split_switch(False)
+    kinds["returned"] += len(batch)
+    valid = dt.decompress(blob, cfg, device="cuda")
+    check(np.array_equal(valid, ref_one(blob)) and (
+        not cfg.lossless or np.array_equal(valid, chunk.ravel())),
+          f"hostile {name}: a valid decode after the corpus is not exact")
+    # the flags sit in pinned memory, complete once collect has returned
+    parts = sorted({c[5] for c in calls["unpack_decode_split"]})
+    bad = sum(int(f.sum()) for _i, _d, f, _w in handle[3] if f is not None)
+    print(f"[14 hostile] {name} ({CHUNK_ROWS}, {cfg.waveform_length}) M="
+          f"{cfg.m} filter {list(cfg.filt)}: {len(cases)} cases, "
+          f"{kinds['raised']} raised ValueError, {kinds['returned']} "
+          f"returned, every one equal to {label}; {len(batch)} in one "
+          f"decompress_batch, equal with the split switch off and on (split "
+          f"decode P={parts or 'not taken'}, B9 flagged {bad} segments); a "
+          f"valid decode after it exact; {time.perf_counter() - t0:.1f} s")
+    return {"cases": len(cases), "raised": kinds["raised"],
+            "returned": kinds["returned"], "batch": len(batch),
+            "split_parts": parts, "flagged": bad}
+
+
+def hostile_verify(hc, name, cfg, chunks) -> None:
+    """Verify-retry on the card: a transient payload fault and a cut header
+    in the third chunk framed recover to native ``dr_compress``'s bytes,
+    split switch off and on; a fault on every frame raises RuntimeError."""
+    import deltarice_tpu_torch as dt
+    from deltarice_tpu_torch.native import native_compress
+
+    cd = cfg.to_cd_values()
+    want = [native_compress(c, cd) for c in chunks]
+    for on in (False, True):
+        split_switch(on)
+        for fault in ("payload", "header"):
+            with faulty_frames(hc, fault, {2}) as count:
+                got = dt.compress_batch(chunks, cfg, verify=True,
+                                        device="cuda")
+            check(got == want, f"hostile verify {name} {fault} (split "
+                  f"{'on' if on else 'off'}): streams differ from native")
+            check(count[0] == len(chunks) + 1,
+                  f"hostile verify {name} {fault}: {count[0]} frames")
+    split_switch(False)
+    with faulty_frames(hc, "payload", set(range(1000))):
+        try:
+            dt.compress_batch(chunks[:2], cfg, verify=True, retries=1,
+                              device="cuda")
+            raised = ""
+        except RuntimeError as e:
+            raised = str(e)
+    check("round-trip verification" in raised,
+          f"hostile verify {name}: a persistent fault did not raise")
+
+
+def hostile_h5(hc, name, cfg, x) -> None:
+    """``write_dataset(verify=True)`` with a fault in the second of three
+    windows (every blob native ``dr_compress``'s), a read with a truncated
+    chunk (ValueError), then an exact read of the repaired dataset."""
+    from deltarice_tpu_torch import h5
+    from deltarice_tpu_torch.native import native_compress
+    from deltarice_tpu_torch.tools.memstore import MemGroup
+
+    chunks = (CHUNK_ROWS, x.shape[1])
+    store = MemGroup()
+    with faulty_frames(hc, "payload", {2}):
+        dset = h5.write_dataset(store, name, x, cfg, chunks, batch_chunks=2,
+                                verify=True, device="cuda")
+    cd = cfg.to_cd_values()
+    for off, (_mask, blob) in dset.id.chunks.items():
+        check(blob == native_compress(x[off[0]: off[0] + CHUNK_ROWS], cd),
+              f"hostile h5 {name} chunk {off}: blob differs from native")
+    off = (2 * CHUNK_ROWS, 0)
+    mask, blob = dset.id.read_direct_chunk(off)
+    dset.id.write_direct_chunk(off, blob[:-4], mask)
+    try:
+        h5.read_dataset(dset, cfg, 2, device="cuda")
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised, f"hostile h5 {name}: a truncated chunk read without error")
+    dset.id.write_direct_chunk(off, blob, mask)
+    check(np.array_equal(h5.read_dataset(dset, cfg, 2, device="cuda"), x),
+          f"hostile h5 {name}: the read after the damaged one is not exact")
+
+
+def phase_hostile(data: dict) -> dict:
+    """Phase 14: corrupt streams and verify-retry on the card at the full
+    chunk shapes of the three geometries; returns the launches of each
+    counted window."""
+    import deltarice_tpu_torch as dt
+    from deltarice_tpu_torch.models import get_profile
+    from deltarice_tpu_torch.ops import _kernels
+
+    hc = hostile_cases()
+    cfgs = {name: get_profile(name).config for name in HOSTILE_FLIPS}
+    windows, t = {}, time.perf_counter()
+    _kernels.reset_launches()
+    for name, flips in HOSTILE_FLIPS.items():
+        hostile_corpus(hc, name, cfgs[name], data[name][:CHUNK_ROWS], flips)
+    for filt in hc.GENERIC_FILTERS:
+        cfg = dt.RiceConfig(8, LENGTH, filt)
+        hostile_corpus(hc, "nab", cfg, data["nab"][:CHUNK_ROWS],
+                       HOSTILE_FILTER_FLIPS, generic=True)
+    torch.cuda.synchronize()
+    windows["corpus"] = dict(_kernels.launches)
+    print(f"[14 hostile] corpus {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    _kernels.reset_launches()
+    for name, cfg in cfgs.items():
+        n = 4 if name == "nab" else 8  # 8 long chunks: the split router
+        hostile_verify(hc, name, cfg, list(data[name][: n * CHUNK_ROWS].reshape(
+            n, CHUNK_ROWS, -1)))
+    torch.cuda.synchronize()
+    windows["verify"] = dict(_kernels.launches)
+    print(f"[14 hostile] verify-retry: a payload fault and a cut header "
+          f"recover to native dr_compress's bytes on Nab (4 chunks), nEDM "
+          f"and NOPTREX (8 chunks each), split switch off and on; a "
+          f"persistent fault raises RuntimeError; "
+          f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    _kernels.reset_launches()
+    for name, cfg in cfgs.items():
+        hostile_h5(hc, name, cfg, data[name][: 6 * CHUNK_ROWS])
+    torch.cuda.synchronize()
+    windows["h5"] = dict(_kernels.launches)
+    print(f"[14 hostile] h5: write_dataset(verify=True) repairs a fault in "
+          f"the second of three windows (every blob native's), a truncated "
+          f"chunk raises ValueError, the next read is exact; "
+          f"{time.perf_counter() - t:.1f} s")
+    need = {"corpus": ("unpack_decode", "split_decode", "concentrate_wide16",
+                       "iir_decode", "pack_encode", "concentrate_packed",
+                       "concentrate_wide"),
+            "verify": ("pack_encode", "unpack_decode", "concentrate_packed",
+                       "concentrate_wide", "split_decode"),
+            "h5": ("pack_encode", "unpack_decode")}
+    for window, names in need.items():
+        for kernel in names:
+            check(windows[window].get(kernel, 0) > 0,
+                  f"hostile {window} never launched {kernel}")
+    print(f"[14 hostile] launches {json.dumps(windows, sort_keys=True)}")
+    hostile_kernels(hc, data)
+    phase_memcheck()
+    return windows
+
+
+def guarded(t: torch.Tensor, seed: int) -> torch.Tensor:
+    """``t`` on the card at the front of a buffer whose tail holds
+    ``GUARD`` random elements of ``seed``: a contiguous tensor of ``t``'s
+    shape. A kernel that read past its input would see the tail."""
+    n = t.numel()
+    buf = torch.empty(n + GUARD, dtype=t.dtype, device="cuda")
+    info = np.iinfo(np.int16 if t.dtype == torch.int16 else np.int32)
+    tail = np.random.default_rng(seed).integers(info.min, info.max, GUARD)
+    buf[n:] = torch.from_numpy(tail.astype(info.dtype)).cuda()
+    view = buf[:n].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def guard_equal(fn, inputs, plain=None) -> bool:
+    """``fn`` on ``inputs`` (tensors) placed before two different guard
+    tails gives the same output both times, and the plain version's where
+    ``plain`` is given (run on CPU copies)."""
+    outs = []
+    for seed in (1, 2):
+        got = fn(*[guarded(a, seed + i) for i, a in enumerate(inputs)])
+        torch.cuda.synchronize()
+        outs.append(got if isinstance(got, tuple) else (got,))
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    if plain is not None:
+        want = plain(*[a.cpu() for a in inputs])
+        want = want if isinstance(want, tuple) else (want,)
+        same = same and all(torch.equal(a.cpu(), b)
+                            for a, b in zip(outs[0], want))
+    return same
+
+
+def hostile_kernels(hc, data) -> None:
+    """The decode kernels on hostile words, each input before two random
+    guard tails: B2 on the one-segment and bad-payload planes of every
+    geometry, B9 + B6 on the nEDM and NOPTREX hostile batches, the generic
+    inverse on Nab's garbage decodes. Equal across the tails, and to the
+    plain version at Nab, where it runs in seconds."""
+    import deltarice_tpu_torch as dt
+    from deltarice_tpu_torch import codec
+    from deltarice_tpu_torch.models import get_profile
+    from deltarice_tpu_torch.native import native_compress
+    from deltarice_tpu_torch.ops import prefilter
+    from deltarice_tpu_torch.ops.split_decode import unpack_decode_split
+    from deltarice_tpu_torch.ops.unpack_cuda import (
+        unpack_decode, unpack_decode_plain)
+
+    t0 = time.perf_counter()
+
+    def plane(blob, nseg):
+        buf = np.frombuffer(blob, dtype="<u4")
+        counts, starts = codec.walk_headers(buf, nseg)
+        w = codec.gather_segments(buf, counts, starts)
+        return torch.from_numpy(w.view(np.int32)), counts
+
+    said = []
+    for name in HOSTILE_FLIPS:
+        cfg = get_profile(name).config
+        chunk = data[name][:CHUNK_ROWS]
+        blob = native_compress(chunk, cfg.to_cd_values())
+        cases = (hc.one_segment(blob, CHUNK_ROWS)
+                 + hc.bad_payloads(blob, CHUNK_ROWS))
+        for case, s in cases:
+            words, counts = plane(s, CHUNK_ROWS)
+            n = cfg.waveform_length
+            for delta in (True, False):
+                check(guard_equal(
+                    lambda w: unpack_decode(w, n, cfg.k, delta), [words],
+                    (lambda w: unpack_decode_plain(w, n, cfg.k, delta))
+                    if name == "nab" else None),
+                    f"B2 on the {name} {case} plane")
+            if name != "nab":
+                nv = np.full(CHUNK_ROWS, n)
+                for parts in (8, 32):
+                    check(guard_equal(
+                        lambda w: unpack_decode_split(w, counts, n, cfg.k,
+                                                      True, parts, nv),
+                        [words]), f"B9 + B6 on the {name} {case} plane, "
+                        f"{parts} parts")
+        said.append(name)
+    for filt in hc.GENERIC_FILTERS:
+        cfg = dt.RiceConfig(8, LENGTH, filt)
+        blob = native_compress(data["nab"][:CHUNK_ROWS], cfg.to_cd_values())
+        cases = hc.flips(blob, 8) + hc.bad_payloads(blob, CHUNK_ROWS)
+        rows = [plane(s, CHUNK_ROWS)[0] for s in hc.batchable(
+            [s for _c, s in cases], CHUNK_ROWS, CHUNK_ROWS * LENGTH)]
+        width = max(r.shape[1] for r in rows)
+        words = torch.cat([torch.nn.functional.pad(r, (0, width - r.shape[1]))
+                           for r in rows]).cuda()
+        values = unpack_decode(words, LENGTH, cfg.k, False)
+        check(guard_equal(lambda v: prefilter.prefilter_decode(v, cfg.filt),
+                          [values],
+                          lambda v: prefilter.prefilter_decode(v, cfg.filt)),
+              f"the generic inverse on the garbage decodes of {filt}")
+    print(f"[14 hostile] kernels on hostile words, each input before two "
+          f"random guard tails of {GUARD} elements: B2 on the one-segment "
+          f"and bad-payload planes of {', '.join(said)} (delta and not), B9 "
+          f"+ B6 on nEDM's and NOPTREX's at 8 and 32 parts, the generic "
+          f"inverse (blocked and serial) on Nab's garbage decodes of "
+          f"{list(hc.GENERIC_FILTERS)}: equal across the tails, and to the "
+          f"plain version at Nab; {time.perf_counter() - t0:.1f} s")
+
+
+def phase_memcheck() -> None:
+    """Run :func:`memcheck_child` under ``compute-sanitizer --tool
+    memcheck``; its error summary must say 0 errors. The caching allocator
+    is off there, so every tensor is an allocation of its own and a read
+    past one is seen. Where the toolkit has no compute-sanitizer, says so:
+    "not checked"."""
+    import shutil
+
+    tool = (shutil.which("compute-sanitizer")
+            or "/usr/local/cuda/bin/compute-sanitizer")
+    if not Path(tool).is_file():
+        print("[14 hostile] memcheck: compute-sanitizer not found, not "
+              "checked")
+        return
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1")
+    res = subprocess.run(
+        [tool, "--tool", "memcheck", "--error-exitcode", "1",
+         sys.executable, str(ROOT / "chip_smoke.py"), "--memcheck"],
+        capture_output=True, text=True, timeout=MEMCHECK_TIMEOUT, env=env,
+        cwd=ROOT)
+    out = res.stdout + res.stderr
+    if "Device not supported" in out:
+        version = re.findall(r"Version (\S+)", subprocess.run(
+            [tool, "--version"], capture_output=True, text=True).stdout)
+        print(f"[14 hostile] memcheck: not checked: compute-sanitizer "
+              f"{version[0] if version else ''} refuses this card (\"Device "
+              f"not supported\"); the guard tails above stand in for it")
+        return
+    summary = re.findall(r"ERROR SUMMARY: (\d+) error", out)
+    said = [ln for ln in res.stdout.splitlines() if ln.startswith("[memcheck]")]
+    for ln in said:
+        print(f"[14 hostile] {ln}")
+    if res.returncode != 0 or summary != ["0"]:
+        tail = "\n".join(out.splitlines()[-40:])
+        raise SmokeFailure(f"memcheck: rc {res.returncode}, summary "
+                           f"{summary}:\n{tail}")
+    print(f"[14 hostile] memcheck: ERROR SUMMARY: 0 errors over B1, B2, B3, "
+          f"B5, B6, B9 and the generic inverse; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def memcheck_child() -> int:
+    """What phase 14 runs under compute-sanitizer: one bucket of corrupt
+    streams of each geometry (split switch off and on), the generic
+    filters' flips on Nab, and a verify-retry with a cut header on each
+    geometry. Prints its launches; exits nonzero on a mismatch."""
+    sys.path.insert(0, str(ROOT))
+    import deltarice_tpu_torch as dt
+    from deltarice_tpu_torch.models import get_profile
+    from deltarice_tpu_torch.native import native_compress, native_decompress
+    from deltarice_tpu_torch.ops import _kernels
+
+    hc = hostile_cases()
+    _kernels.reset_launches()
+    try:
+        runs = [(name, get_profile(name).config) for name in HOSTILE_FLIPS]
+        runs += [("nab", dt.RiceConfig(8, LENGTH, f))
+                 for f in hc.GENERIC_FILTERS]
+        for name, cfg in runs:
+            chunk = get_profile(name).synthetic(CHUNK_ROWS, seed=0)
+            cd = cfg.to_cd_values()
+            blob = dt.compress(chunk, cfg, device="cuda")
+            check(blob == native_compress(chunk, cd), f"{name}: encode")
+            cases = (hc.flips(blob, MEMCHECK_FLIPS)
+                     + hc.bad_payloads(blob, CHUNK_ROWS))
+            batch = hc.batchable([s for _n, s in cases], CHUNK_ROWS,
+                                 chunk.size)
+            want = [native_decompress(s, cd) for s in batch]
+            for on in (False, True):
+                split_switch(on)
+                got = dt.decompress_batch(batch, cfg, device="cuda")
+                check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+                      f"{name} {list(cfg.filt)}: a hostile decode differs")
+            split_switch(False)
+            wide = hc.one_segment(blob, CHUNK_ROWS)[0][1]
+            check(np.array_equal(dt.decompress(wide, cfg, device="cuda"),
+                                 native_decompress(wide, cd)),
+                  f"{name}: the one-segment stream differs")
+            if cfg.lossless:  # a lossy filter never round-trips
+                with faulty_frames(hc, "header", {0}):
+                    got = dt.compress_batch([chunk], cfg, verify=True,
+                                            device="cuda")
+                check(got == [blob], f"{name}: verify-retry")
+            torch.cuda.synchronize()
+        for kernel in ("pack_encode", "concentrate_packed", "concentrate_wide",
+                       "unpack_decode", "split_decode", "concentrate_wide16",
+                       "iir_decode.blocked", "iir_decode.serial"):
+            check(_kernels.launches.get(kernel, 0) > 0,
+                  f"the memcheck run never launched {kernel}")
+    except SmokeFailure as e:
+        print(f"[memcheck] FAILED: {e}")
+        return 1
+    print(f"[memcheck] {len(runs)} streams' corrupt buckets (split off and "
+          f"on), one-segment streams and verify-retries; launches "
+          f"{json.dumps(dict(_kernels.launches), sort_keys=True)}")
+    return 0
+
+
 def run() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this run needs one", file=sys.stderr)
@@ -2060,6 +2534,9 @@ def run() -> int:
         counted["generic"], generic_rows = phase_generic(data, nab_choice,
                                                          card)
         print(f"[13 generic] {card}; {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        counted["hostile"] = phase_hostile(data)
+        print(f"[14 hostile] {card}; {time.perf_counter() - t:.1f} s")
         left = child_processes()
         check(not left, f"processes left running: {left}")
     except SmokeFailure as e:
@@ -2091,4 +2568,4 @@ def run() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(run())
+    sys.exit(memcheck_child() if sys.argv[1:] == ["--memcheck"] else run())

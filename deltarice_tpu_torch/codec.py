@@ -545,9 +545,10 @@ def compress_batch(chunks, cfg: RiceConfig = RiceConfig(),
                    device="cuda") -> list[bytes]:
     """Compress many equal-sized chunks in one device call.
 
-    With ``verify=True`` every stream is decoded back and compared to its
-    input; chunks that fail re-encode individually up to ``retries`` times,
-    and persistent failure raises ``RuntimeError``.
+    With ``verify=True`` every stream is decoded back on ``device`` and
+    compared to its input; chunks that fail re-encode individually up to
+    ``retries`` times (:func:`_verify_retry`), and persistent failure
+    raises ``RuntimeError``.
     """
     handle = compress_batch_dispatch(chunks, cfg, device)
     return compress_batch_collect(handle, cfg, verify, retries)
@@ -666,7 +667,11 @@ def _verify_retry(arrs, streams, cfg: RiceConfig, retries: int,
     """Round-trip-check every stream; re-encode failing chunks.
 
     One batched decode checks everything; only failing chunks pay the
-    per-chunk retry path.
+    per-chunk retry path. A stream whose framing is broken makes the
+    batched decode raise ``ValueError``; then each stream is checked on
+    its own, and one that raises counts as failed. A chunk still failing
+    after ``retries`` re-encodes raises ``RuntimeError`` naming it; no
+    other exception comes from a damaged stream.
     """
     def bad_indices(idxs, blobs):
         try:
@@ -702,7 +707,12 @@ def _verify_retry(arrs, streams, cfg: RiceConfig, retries: int,
 
 def decompress(stream, cfg: RiceConfig = RiceConfig(),
                device="cuda") -> np.ndarray:
-    """Decompress a framed byte stream back to a flat int16 array."""
+    """Decompress a framed byte stream back to a flat int16 array.
+
+    A damaged stream raises ``ValueError`` (a truncation, framing that
+    overruns the stream, an empty stream, a byte count that is no whole
+    number of words) or decodes to garbage of its stated length; it never
+    crashes, hangs or reads outside its words, on the CPU or the card."""
     return decompress_batch([stream], cfg, device)[0]
 
 
@@ -713,7 +723,10 @@ def decompress_batch(streams, cfg: RiceConfig = RiceConfig(),
 
     All streams must describe the same sample count (uniform chunks).
     Chunks are grouped by their padded word width so one escape-heavy
-    chunk only widens its own bucket, not the whole batch."""
+    chunk only widens its own bucket, not the whole batch. A stream that
+    fails the header walk makes the whole call raise ``ValueError``; other
+    damage leaves garbage in that stream's output alone, the garbage
+    :func:`decompress` gives for it."""
     return decompress_batch_collect(
         decompress_batch_dispatch(streams, cfg, device)
     )

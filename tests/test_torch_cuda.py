@@ -6,6 +6,7 @@ the same inputs. Each test skips without a CUDA card; run them on the card
 with ``pytest tests/test_torch_cuda.py``. Imports no JAX.
 """
 
+import functools
 import json
 from pathlib import Path
 
@@ -48,6 +49,7 @@ from deltarice_tpu_torch.ops.split_decode_cuda import (
 )
 from deltarice_tpu_torch.ops.tiled_model import decode_tiled
 from deltarice_tpu_torch.ops.unpack_cuda import unpack_decode, unpack_tables
+import hostile_cases as hc
 from prefilter_cases import EDGES, GRID, blocked_grid, grid_filter, samples
 from tiled_cases import CASES as TILED_CASES, KINDS as TILED_KINDS, planes
 
@@ -1009,3 +1011,246 @@ def test_batch_with_a_generic_filter_matches_native(cuda, filt):
         np.testing.assert_array_equal(b, native_decompress(s, cd))
         if cfg.lossless:
             np.testing.assert_array_equal(b, c.ravel())
+
+
+# --- hostile streams: corrupt words through the kernels and the codec -------
+#
+# tests/hostile_cases.py's corpus, which tests/test_torch_robustness.py holds
+# against the JAX package on the CPU: every decode on the card must equal the
+# port's CPU decode exactly, or both must raise ValueError; no other
+# exception may escape, and the card must stay usable after every case.
+
+
+def _hostile_nab(rows=32, seed=0):
+    x = _nab(rows, seed=seed)
+    return x, native_compress(x, (8, 7000))
+
+
+def _plane(blob, nseg):
+    """The decode plane of a stream that passes the header walk: (nseg, W)
+    int32 words as the codec gathers them, and the word counts."""
+    buf = np.frombuffer(blob, dtype="<u4")
+    counts, starts = codec.walk_headers(buf, nseg)
+    words = codec.gather_segments(buf, counts, starts)
+    return torch.from_numpy(words.view(np.int32)), counts
+
+
+@functools.lru_cache(maxsize=None)
+def _hostile_check():
+    return _hostile_nab(4, seed=9)
+
+
+def _card_still_exact():
+    """A later valid decode on the card is exact: the context survived."""
+    torch.cuda.synchronize()
+    x, blob = _hostile_check()
+    got = dt.decompress(blob, dt.RiceConfig(8, 7000), device="cuda")
+    assert np.array_equal(got, x.ravel())
+
+
+@pytest.mark.parametrize("case", ["one segment", "payload random",
+                                  "payload zeros", "payload ones"])
+def test_unpack_decode_hostile_planes_match_plain(cuda, case):
+    """B2 on the (e) and (f) planes of a Nab chunk: an escape-wide row
+    holding the whole stream, and payloads no encoder wrote."""
+    x, blob = _hostile_nab()
+    cases = dict(hc.one_segment(blob, 32) + hc.bad_payloads(blob, 32))
+    words, _counts = _plane(cases[case], 32)
+    for delta in (True, False):
+        _assert_same(*_both(unpack_decode, words, 7000, 3, delta))
+    _card_still_exact()
+
+
+@pytest.mark.parametrize("k", [0, 3, 8, 15])
+def test_unpack_decode_hostile_narrow_and_full_rows_match_plain(cuda, k):
+    """B2 on random rows of width 2 (one word and the pad, zero or not)
+    and on random streams that fill their row up to the pad word."""
+    rng = np.random.default_rng(k)
+    two = rng.integers(-2**31, 2**31, (64, 2)).astype(np.int32)
+    two[::2, 1] = 0
+    full = rng.integers(-2**31, 2**31, (16, 256)).astype(np.int32)
+    full[:, -1] = 0
+    for w, n in ((two, 100), (full, 3000), (full, 9000)):
+        for delta in (True, False):
+            _assert_same(*_both(unpack_decode, torch.from_numpy(w), n, k,
+                                delta))
+    _card_still_exact()
+
+
+def _hostile_long():
+    """The long-segment case (h) of tests/test_torch_robustness.py: a
+    NOPTREX-like chunk of 8 segments of 12000 samples, M=8, its flips
+    and bad payloads."""
+    x = get_profile("noptrex").synthetic(8, seed=0, length=12000)
+    blob = native_compress(x, (8, 12000))
+    return x, blob, hc.flips(blob, 40) + hc.bad_payloads(blob, 8)
+
+
+def test_split_decode_hostile_matches_plain(cuda):
+    """B9 + B6 (``unpack_decode_split``) on the flipped and bad-payload
+    long-segment streams, in one plane, flags included."""
+    from deltarice_tpu_torch.ops.split_decode import unpack_decode_split
+
+    _x, _blob, cases = _hostile_long()
+    planes = [_plane(s, 8) for s in hc.batchable([s for _n, s in cases], 8,
+                                                 8 * 12000)]
+    width = max(p[0].shape[1] for p in planes)
+    words = torch.cat([torch.nn.functional.pad(w, (0, width - w.shape[1]))
+                       for w, _c in planes])
+    counts = np.concatenate([c for _w, c in planes])
+    got, want = _both(lambda w: unpack_decode_split(w, counts, 12000, 3,
+                                                    True, 4), words)
+    _assert_same(got, want)
+    assert bool(want[1].any())  # bad payloads break junctions
+    _card_still_exact()
+
+
+@pytest.mark.parametrize("filt", hc.GENERIC_FILTERS, ids=str)
+def test_iir_decode_on_garbage_decodes_matches_plain(cuda, filt):
+    """The generic inverse (blocked for the lossless filter, serial for the
+    lossy one) on what B2 gives for the flipped streams of (g)."""
+    cd = (8, 7000, len(filt), *[f & 0xFFFFFFFF for f in filt])
+    cfg = dt.RiceConfig.from_cd_values(cd)
+    x = _nab(32, seed=4)
+    blob = native_compress(x, cd)
+    cases = hc.flips(blob, 24) + hc.bad_payloads(blob, 32)
+    planes = [_plane(s, 32)[0]
+              for s in hc.batchable([s for _n, s in cases], 32, x.size)]
+    width = max(p.shape[1] for p in planes)
+    words = torch.cat([torch.nn.functional.pad(w, (0, width - w.shape[1]))
+                       for w in planes])
+    values = unpack_decode(words.cuda(), 7000, cfg.k, False)
+    _kernels.reset_launches()
+    got = prefilter.prefilter_decode(values, cfg.filt)
+    torch.cuda.synchronize()
+    assert _kernels.launches["iir_decode"] == 1
+    _assert_same(got, prefilter.prefilter_decode(values.cpu(), cfg.filt))
+    _card_still_exact()
+
+
+def _hostile_corpora():
+    """(label, cd, corpus): the CPU test's stream and its families (a)-(f),
+    the generic filters' flips (g) and the long-segment cases (h)."""
+    rng = np.random.default_rng(0)
+    x = np.round(np.cumsum(rng.normal(0, 10, 1000))).astype(np.int16)
+    out = [("nab-like", (8, 100), hc.corpus(native_compress(x, (8, 100)),
+                                            10))]
+    for filt in hc.GENERIC_FILTERS:
+        cd = (8, 100, len(filt), *[f & 0xFFFFFFFF for f in filt])
+        out.append((f"filter {filt}", cd,
+                    hc.flips(native_compress(x, cd), 60)))
+    _x, _blob, cases = _hostile_long()
+    out.append(("long", (8, 12000), cases))
+    return out
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["split-off",
+                                                      "split-on"])
+def test_decompress_hostile_on_the_card_equals_the_cpu(cuda, split,
+                                                       monkeypatch):
+    """Every case, one stream a call, on the card and on the CPU; then
+    each corpus's walkable streams as one batch. With the split switch on
+    the router is held at 4 parts, as on the CPU."""
+    monkeypatch.setenv("DELTARICE_TPU_SPLIT_DECODE", "1" if split else "0")
+    if split:
+        monkeypatch.setattr(codec, "decode_split_parts", lambda *a: 4)
+    _kernels.reset_launches()
+    for label, cd, cases in _hostile_corpora():
+        cfg = dt.RiceConfig.from_cd_values(cd)
+        total = int(np.frombuffer(cases[-1][1][:4], "<u4")[0])
+        batch = hc.batchable([s for _n, s in cases],
+                             cfg.segments(total)[0], total)
+        for name, s in cases:
+            if label == "long" and s in batch:
+                continue  # 12000 samples a segment: the batch covers it
+            got = hc.outcome(lambda b: dt.decompress(b, cfg, device="cuda"),
+                             s)
+            want = hc.outcome(lambda b: dt.decompress(b, cfg, device="cpu"),
+                              s)
+            assert hc.same(got, want), f"{label} {name}: {got[0]} {want[0]}"
+            torch.cuda.synchronize()
+        got = dt.decompress_batch(batch, cfg, device="cuda")
+        want = dt.decompress_batch(batch, cfg, device="cpu")
+        assert len(got) == len(want) == len(batch)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        _card_still_exact()
+    assert _kernels.launches["unpack_decode"] > 0
+    assert (_kernels.launches["split_decode"] > 0) == split
+
+
+def _verify_chunks(name):
+    """Chunks of one geometry at its full chunk shape: 8 of them for the
+    long profiles (the split router takes 8 x 32 segments), 4 for Nab."""
+    if name == "nab":
+        return list(_nab(128).reshape(4, 32, 7000)), dt.RiceConfig(8, 7000)
+    chunk, cfg = _long_chunk(name)
+    return [np.roll(chunk, 997 * i, axis=1) for i in range(8)], cfg
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["split-off",
+                                                      "split-on"])
+@pytest.mark.parametrize("name", ["nab", "nedm", "noptrex"])
+def test_verify_retry_on_the_card(cuda, name, split, monkeypatch):
+    """A transient payload fault and a truncated header, each in one chunk
+    of a batch, recover to native ``dr_compress``'s bytes; a persistent
+    fault raises ``RuntimeError``. B1 encodes (nEDM and NOPTREX split,
+    merged by B3 and B5), and the check decodes on the card."""
+    monkeypatch.setenv("DELTARICE_TPU_SPLIT_DECODE", "1" if split else "0")
+    chunks, cfg = _verify_chunks(name)
+    cd = cfg.to_cd_values()
+    want = [native_compress(c, cd) for c in chunks]
+    real = codec.frame_stream
+    for fault in ("payload", "header"):
+        spy = hc.faulty_frames({2}, real, fault)
+        monkeypatch.setattr(codec, "frame_stream", spy)
+        _kernels.reset_launches()
+        got = dt.compress_batch(chunks, cfg, verify=True, device="cuda")
+        assert got == want, fault
+        assert spy.count[0] == len(chunks) + 1
+        assert _kernels.launches["pack_encode"] == 2
+        if name != "nab":
+            merge = ("concentrate_packed" if name == "nedm"
+                     else "concentrate_wide")
+            assert _kernels.launches[merge] == 2
+        if split and name != "nab":
+            assert _kernels.launches["split_decode"] >= 1
+        _card_still_exact()
+    monkeypatch.setattr(codec, "frame_stream",
+                        hc.faulty_frames(set(range(100)), real))
+    with pytest.raises(RuntimeError, match="round-trip verification"):
+        dt.compress_batch(chunks[:2], cfg, verify=True, retries=1,
+                          device="cuda")
+    _card_still_exact()
+
+
+def test_h5_hostile_write_and_read_on_the_card(cuda, monkeypatch):
+    """``write_dataset(verify=True)`` repairs a fault in the second of three
+    windows (every blob native ``dr_compress``'s); a read with a truncated
+    chunk raises ValueError as on the CPU, and an intact read after it is
+    exact."""
+    from deltarice_tpu_torch import h5 as th5
+    from deltarice_tpu_torch.tools.memstore import MemGroup
+
+    x = _nab(192)
+    cfg = dt.RiceConfig(8, 7000)
+    spy = hc.faulty_frames({2}, codec.frame_stream)
+    monkeypatch.setattr(codec, "frame_stream", spy)
+    g = MemGroup()
+    th5.write_dataset(g, "d", x, cfg, (32, 7000), batch_chunks=2,
+                      verify=True, device="cuda")
+    monkeypatch.undo()
+    assert spy.count[0] == 7
+    dset = g["d"]
+    for i in range(6):
+        assert dset.id.read_direct_chunk((32 * i, 0))[1] == native_compress(
+            x[32 * i : 32 * i + 32], (8, 7000))
+    mask, blob = dset.id.read_direct_chunk((96, 0))
+    dset.id.write_direct_chunk((96, 0), blob[:-4], mask)
+    for device in ("cuda", "cpu"):
+        with pytest.raises(ValueError):
+            th5.read_dataset(dset, cfg, 2, device=device)
+    dset.id.write_direct_chunk((96, 0), blob, mask)
+    np.testing.assert_array_equal(th5.read_dataset(dset, cfg, 2,
+                                                   device="cuda"), x)
+    _card_still_exact()
