@@ -91,8 +91,14 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
 12. runs the port's measurement tools in this process, each tool's JSON on
    a line of its own, every launch in a counted window: ``bench.run`` at
    2048 x 7000 and one subprocess ``python -m deltarice_tpu_torch.bench``
-   whose last line must parse; ``tools.bench_geometries`` on its seven
-   configs (nEDM and NOPTREX with the split switch off and on), whose
+   whose last line must parse, its output then handed to
+   ``tools.perf_gate.main`` three times, each verdict on a line of its own:
+   against the committed baselines (exit 0 or 1, a ``FAIL`` fails nothing
+   here: the gate's mechanics are checked, not the card's speed that day;
+   the fresh value it prints must be the line's), against a baseline of
+   this card 25 % above the fresh value (exit 1, ``FAIL``) and against one
+   of another card (exit 0, no baseline); ``tools.bench_geometries`` on its
+   seven configs (nEDM and NOPTREX with the split switch off and on), whose
    ratios and split parts must equal ``GEOMETRY_BENCH.json``'s;
    ``tools.fuzz_native`` on 60 cases of seed 0 with no failure (2-6 s on
    an H100 since the generic inverse became a kernel; its ``slowest``
@@ -1622,6 +1628,54 @@ def run_ranks(world, backend, src, counts, nab, lossy, out) -> dict:
     return windows
 
 
+def gate_verdicts(bench_stdout: str, last: dict) -> None:
+    """Phase 12's perf gate: ``tools.perf_gate.main`` on the bench
+    subprocess's output against the committed baselines, a baseline of this
+    card 25 % above the fresh value, and a baseline of another card; each
+    verdict printed. Exceptions are not caught: a gate that breaks fails the
+    run."""
+    from deltarice_tpu_torch.tools import perf_gate
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        log = Path(tmp) / "bench.log"
+        log.write_text(bench_stdout)
+
+        def gate(label, baseline=None):
+            extra = []
+            if baseline is not None:
+                directory = Path(tmp) / label.replace(" ", "_")
+                directory.mkdir()
+                (directory / "BENCH_r01.json").write_text(
+                    json.dumps({**last, **baseline}))
+                extra = ["--baselines", str(directory)]
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = perf_gate.main([str(log), *extra])
+            verdict = out.getvalue().strip()
+            print(f"[12 tools] perf_gate {label}: exit {rc}: {verdict}")
+            fresh = re.search(r"fresh =? ?([0-9.]+)", verdict)
+            check(fresh is not None
+                  and fresh.group(1) == f"{last['value']:.3f}",
+                  f"perf_gate {label} printed another fresh value than the "
+                  f"bench line's {last['value']}: {verdict!r}")
+            return rc, verdict
+
+        rc, _ = gate("committed")
+        check(rc in (0, 1), f"perf_gate against the committed baselines "
+              f"exited {rc}")
+        rc, verdict = gate("+25 %", {"value": last["value"] * 1.25})
+        check(rc == 1 and verdict.startswith("perf gate [FAIL]"),
+              f"perf_gate against a baseline 25 % above the fresh value: "
+              f"exit {rc}, {verdict!r}")
+        rc, verdict = gate("another card", {"card": "another card, 1.00 W"})
+        check(rc == 0 and "no committed baseline" in verdict,
+              f"perf_gate against another card's baseline: exit {rc}, "
+              f"{verdict!r}")
+    print(f"[12 tools] perf_gate: three verdicts in "
+          f"{time.perf_counter() - t:.3f} s")
+
+
 def phase_measurement_tools(card: str) -> dict:
     """Phase 12: the port's measurement tools (``deltarice_tpu_torch.bench``
     and ``deltarice_tpu_torch.tools``) in this process, each tool's JSON on
@@ -1661,6 +1715,7 @@ def phase_measurement_tools(card: str) -> dict:
     print(f"[12 tools] python -m deltarice_tpu_torch.bench: exit 0 in "
           f"{time.perf_counter() - t:.1f} s, last line parses: value "
           f"{last['value']} GB/s, card {last['card']!r}")
+    gate_verdicts(res.stdout, last)
 
     published = {r["config"]: r for r in json.loads(
         (ROOT / "GEOMETRY_BENCH.json").read_text())["rows"]}
@@ -2528,7 +2583,8 @@ def run() -> int:
         print(f"[11 multi-device] {card}; {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         counted["tools"] = phase_measurement_tools(card)
-        print(f"[12 tools] {card}; no window launched B4; "
+        print(f"[12 tools] {card}; no window launched B4; perf_gate's "
+              f"three verdicts as they must be; "
               f"{time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         counted["generic"], generic_rows = phase_generic(data, nab_choice,

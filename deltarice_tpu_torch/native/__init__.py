@@ -6,7 +6,9 @@ The port keeps its own copy of the JAX package's C sources in
 codec and its host routines) and ``h5z_deltarice.c`` (the HDF5 filter
 class for ID 32025 and the dynamic-plugin entry points).
 Both build on first use, with the system C compiler, into one shared
-library under ``deltarice_tpu_torch/build/native/``. It gives the codec its
+library, :func:`library_path` (``deltarice_tpu_torch/build/native/``;
+:func:`is_built` and :func:`build` as the JAX package's ``native`` module
+has them; binary wheels ship it prebuilt). It gives the codec its
 host routines (header walk, ragged gather, stream framing), an independent
 whole-chunk codec (``dr_compress`` / ``dr_decompress``) to hold the port
 against, and the filter plugin that :func:`register_with_h5py` registers
@@ -25,6 +27,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 from pathlib import Path
 
@@ -67,12 +70,22 @@ _SIGNATURES = {
 }
 
 
-def build() -> Path:
+class NoCompiler(RuntimeError):
+    """No C compiler on this host to build the library with."""
+
+
+def library_path() -> Path:
+    """Where :func:`build` writes the library (:data:`LIB`)."""
+    return LIB
+
+
+def build(verbose: bool = False) -> Path:
     """Compile :data:`SOURCES` into :data:`LIB` (atomic replace, so a
-    concurrent process never loads a half-written file)."""
+    concurrent process never loads a half-written file). ``verbose`` writes
+    the compiler's output to stderr."""
     cc = shutil.which("cc") or shutil.which("gcc") or shutil.which("clang")
     if cc is None:
-        raise RuntimeError("no C compiler found")
+        raise NoCompiler("no C compiler found")
     LIB.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=LIB.parent)
     os.close(fd)
@@ -85,6 +98,8 @@ def build() -> Path:
              *map(str, SOURCES), "-o", tmp, "-ldl", "-Wl,-z,nodelete"],
             capture_output=True, text=True,
         )
+        if verbose:
+            sys.stderr.write(res.stdout + res.stderr)
         if res.returncode != 0:
             raise RuntimeError(f"native build failed:\n{res.stderr}")
         os.replace(tmp, LIB)
@@ -94,9 +109,30 @@ def build() -> Path:
     return LIB
 
 
-def _is_built() -> bool:
-    return LIB.is_file() and LIB.stat().st_mtime >= max(
-        p.stat().st_mtime for p in (*SOURCES, SRC_DIR / "dr_codec.h"))
+def is_built() -> bool:
+    """True when the library exists and is no older than any
+    ``src/*.[ch]`` (a stale build would load without newly added exports)."""
+    if not LIB.is_file():
+        return False
+    try:
+        built = LIB.stat().st_mtime
+        return all(built >= p.stat().st_mtime for p in SRC_DIR.glob("*.[ch]"))
+    except OSError:
+        return True  # unreadable source tree: trust the library
+
+
+def ensure_built(verbose: bool = False) -> Path:
+    """:func:`library_path`, built first unless :func:`is_built`. A library
+    that looks older than its sources is used as it is where no compiler
+    can rebuild it: a binary wheel's prebuilt copy, whose files carry the
+    times they were unpacked at."""
+    if not is_built():
+        try:
+            build(verbose)
+        except NoCompiler:
+            if not LIB.is_file():
+                raise
+    return LIB
 
 
 _codec_lib: "ctypes.CDLL | None | bool" = False  # False = not yet tried
@@ -109,9 +145,7 @@ def codec_lib() -> "ctypes.CDLL | None":
     if _codec_lib is False:
         lib = None
         try:
-            if not _is_built():
-                build()
-            lib = ctypes.CDLL(str(LIB))
+            lib = ctypes.CDLL(str(ensure_built()))
         except (OSError, RuntimeError):
             lib = None
         if lib is not None:
@@ -195,8 +229,7 @@ def register_with_h5py() -> bool:
     on success, False where h5py, the C compiler or libhdf5 is missing.
     """
     try:
-        if not _is_built():
-            build()
+        ensure_built()
         import h5py  # loads libhdf5 into the process
     except (ImportError, OSError, RuntimeError):
         return False

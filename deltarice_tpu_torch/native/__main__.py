@@ -15,7 +15,8 @@ import argparse
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m deltarice_tpu_torch.native")
     sub = p.add_subparsers(dest="cmd", required=True)
-    sub.add_parser("build", help="compile the native filter library")
+    pb = sub.add_parser("build", help="compile the native filter library")
+    pb.add_argument("-v", "--verbose", action="store_true")
     pi = sub.add_parser(
         "install", help="build and copy the plugin into HDF5_PLUGIN_PATH")
     pi.add_argument("--plugin-dir", default=None)
@@ -24,7 +25,7 @@ def main(argv=None) -> int:
     if args.cmd == "build":
         from . import build
 
-        print(f"built {build()}")
+        print(f"built {build(verbose=args.verbose)}")
     else:
         from .install import install_plugin
 

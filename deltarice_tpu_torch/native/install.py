@@ -37,20 +37,20 @@ def default_plugin_dir() -> Path:
 
 def install_plugin(plugin_dir: "str | Path | None" = None,
                    verbose: bool = False) -> Path:
-    """Build the plugin if needed and copy it into ``plugin_dir``.
+    """Build the plugin if needed (:func:`..ensure_built`) and copy it into
+    ``plugin_dir``.
 
     Returns the installed library's path. Raises on a failed build or copy
     (e.g. an unwritable system directory: pass a writable ``plugin_dir`` and
     point ``HDF5_PLUGIN_PATH`` at it).
     """
-    from . import LIB, _is_built, build
+    from . import ensure_built
 
-    if not _is_built():
-        build()
+    src = ensure_built(verbose)
     dest_dir = Path(plugin_dir) if plugin_dir else default_plugin_dir()
     dest_dir.mkdir(parents=True, exist_ok=True)
-    dest = dest_dir / LIB.name
-    shutil.copy2(LIB, dest)
+    dest = dest_dir / src.name
+    shutil.copy2(src, dest)
     if verbose:
         sys.stderr.write(f"installed {dest}\n")
     return dest

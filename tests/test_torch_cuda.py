@@ -1254,3 +1254,28 @@ def test_h5_hostile_write_and_read_on_the_card(cuda, monkeypatch):
     np.testing.assert_array_equal(th5.read_dataset(dset, cfg, 2,
                                                    device="cuda"), x)
     _card_still_exact()
+
+
+def test_c_written_file_reads_on_the_card(cuda, tmp_path):
+    """``examples/c/dr_roundtrip.c``, built against the port's native
+    library, writes a file through a system libhdf5; the card's read of it
+    equals the example's recurrence and the CPU read. Skips where
+    ``tests/test_torch_c_example.py`` skips, and without h5py."""
+    import c_example
+    from deltarice_tpu_torch import h5 as th5
+
+    h5py = pytest.importorskip("h5py")
+    tools = c_example.toolchain()
+    if tools is None:
+        pytest.skip("needs a C compiler and a system libhdf5 runtime")
+    binary = c_example.build_example(*tools, tmp_path / "dr_roundtrip")
+    h5file = tmp_path / "c_written.h5"
+    assert "round-trip OK" in c_example.write_file(binary, h5file)
+    with h5py.File(h5file, "r") as f:
+        _kernels.reset_launches()
+        got = th5.read_dataset(f["waveforms"], device="cuda")
+        counts = dict(_kernels.launches)
+        cpu = th5.read_dataset(f["waveforms"], device="cpu")
+    np.testing.assert_array_equal(got, c_example.example_data())
+    np.testing.assert_array_equal(got, cpu)
+    assert counts["unpack_decode"] >= 1
