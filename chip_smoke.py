@@ -167,7 +167,25 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    --memcheck``: one corrupt bucket of each geometry, split off and on,
    and a verify-retry each) under ``compute-sanitizer --tool memcheck``,
    whose summary must be 0 errors; where the toolkit has no
-   compute-sanitizer, or it refuses the card, it prints "not checked";
+   compute-sanitizer, or it refuses the card, it prints "not checked".
+15. holds every kernel's global-memory accesses to the buffers its
+   wrapper hands it, under the guard-page allocator of
+   ``deltarice_tpu_torch/testing/guard.py`` (each allocation its own
+   reservation, poison-filled, with a never-mapped granule after it,
+   ``end``, or before it, ``front``): first the positive control (two
+   children that must die with an illegal address one byte past an end
+   buffer and one before a front buffer, after reading the last and the
+   first byte), then ``chip_smoke.py --guard end --fill 165`` and
+   ``--guard front --fill 90`` as two children run together
+   (:func:`guard_child`), each over every case of :func:`guard_cases`
+   (a: the memcheck set; b: B2, B9 + B6 and the inverse on the hostile
+   planes and on planes of width 1 and 2 and full rows; c: every kernel
+   at ragged shapes against its plain version, B4, B7 and B8 included;
+   d: ``compress_batch`` over the cap at every geometry), with every
+   kernel input an allocation of its own. Every output must equal its
+   reference and hash alike in both children, each child must launch all
+   13 wrappers and the inverse's three paths, and a child that dies is
+   named by the case it left unfinished and its CUDA error;
    then the JSON line of the kernels and the JSON ``ok`` line last.
 
 Each phase prints its seconds. Before the last lines it checks that no
@@ -182,6 +200,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import hashlib
 import io
 import json
 import os
@@ -191,6 +210,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -249,6 +269,27 @@ HOSTILE_FILTER_FLIPS = 24
 MEMCHECK_FLIPS = 6
 MEMCHECK_TIMEOUT = 600
 GUARD = 1 << 16  # random elements after a kernel's input in phase 14
+# phase 15, guard pages and poison fills: the two placements with their
+# poison bytes, a child's time before it is killed, every kernel wrapper (by
+# its module under ops/) and each path of the generic inverse, all of which
+# each child must launch, and the ragged lengths of case c (one sample past
+# B1's 1024-sample tile, ...)
+GUARD_RUNS = (("end", 0xA5), ("front", 0x5A))
+GUARD_TIMEOUT = 300
+GUARD_WRAPPERS = {
+    "pack_cuda": ("pack_encode",),
+    "unpack_cuda": ("unpack_decode", "unpack_tables"),
+    "concentrate_cuda": ("concentrate_packed", "concentrate_wide",
+                         "concentrate_wide16"),
+    "concentrate_tiled_cuda": ("concentrate_tiled", "concentrate_tiled_vd"),
+    "split_decode_cuda": ("split_decode", "split_decode_passes"),
+    "transpose_cuda": ("transpose2d",),
+    "prefilter_cuda": ("iir_decode", "iir_decode_serial"),
+}
+GUARD_KERNELS = tuple(n for names in GUARD_WRAPPERS.values() for n in names)
+IIR_PATHS = ("iir_decode.blocked", "iir_decode.one_walk", "iir_decode.serial")
+RAGGED_N = (1, 7, 9, 1025, 4099, 7001)
+GUARD_MADE_ROWS = 2  # rows of case b's planes of width 1, 2 and full rows
 # why no single PyTorch call computes a kernel's function (library_ms null)
 NO_LIBRARY = {
     "pack_encode": "no PyTorch call Rice-codes or bit-packs",
@@ -2093,17 +2134,21 @@ def iir_rows(nab, noptrex, nab_filt, card, decode) -> list[dict]:
     return rows
 
 
-def hostile_cases():
-    """``tests/hostile_cases.py``, imported by path: the card's machine runs
-    this script from the root of a checkout, where ``tests`` is no
-    package."""
+def tests_module(name: str):
+    """``tests/<name>.py``, imported by path: the card's machine runs this
+    script from the root of a checkout, where ``tests`` is no package."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "hostile_cases", ROOT / "tests" / "hostile_cases.py")
+        name, ROOT / "tests" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def hostile_cases():
+    """``tests/hostile_cases.py``: the corpus of hostile streams."""
+    return tests_module("hostile_cases")
 
 
 @contextlib.contextmanager
@@ -2358,6 +2403,47 @@ def guard_equal(fn, inputs, plain=None) -> bool:
     return same
 
 
+def plane(blob: bytes, nseg: int):
+    """A stream's segments as the decode kernels take them: (nseg, W) int32
+    words, zero past each segment's words and one pad word (a CPU tensor),
+    and the word counts of the header walk."""
+    from deltarice_tpu_torch import codec
+
+    buf = np.frombuffer(blob, dtype="<u4")
+    counts, starts = codec.walk_headers(buf, nseg)
+    w = codec.gather_segments(buf, counts, starts)
+    return torch.from_numpy(w.view(np.int32)), counts
+
+
+def hostile_planes(hc, cfg, chunk) -> list:
+    """(case, words, counts, stream) of the one-segment and bad-payload
+    streams of ``chunk``'s native stream: the planes phases 14 and 15 hand
+    the decode kernels."""
+    from deltarice_tpu_torch.native import native_compress
+
+    nseg = cfg.segments(chunk.size)[0]
+    blob = native_compress(chunk, cfg.to_cd_values())
+    return [(case, *plane(s, nseg), s) for case, s in
+            hc.one_segment(blob, nseg) + hc.bad_payloads(blob, nseg)]
+
+
+def garbage_words(hc, cfg, chunk) -> torch.Tensor:
+    """One word plane (a CPU tensor) of the walkable flipped and
+    bad-payload streams of ``chunk`` under a generic filter, every row
+    padded to one width: what B2 decodes into the generic inverse's
+    garbage input."""
+    from deltarice_tpu_torch.native import native_compress
+
+    nseg = cfg.segments(chunk.size)[0]
+    blob = native_compress(chunk, cfg.to_cd_values())
+    cases = hc.flips(blob, 8) + hc.bad_payloads(blob, nseg)
+    rows = [plane(s, nseg)[0] for s in hc.batchable(
+        [s for _c, s in cases], nseg, chunk.size)]
+    width = max(r.shape[1] for r in rows)
+    return torch.cat([torch.nn.functional.pad(r, (0, width - r.shape[1]))
+                      for r in rows])
+
+
 def hostile_kernels(hc, data) -> None:
     """The decode kernels on hostile words, each input before two random
     guard tails: B2 on the one-segment and bad-payload planes of every
@@ -2365,32 +2451,19 @@ def hostile_kernels(hc, data) -> None:
     inverse on Nab's garbage decodes. Equal across the tails, and to the
     plain version at Nab, where it runs in seconds."""
     import deltarice_tpu_torch as dt
-    from deltarice_tpu_torch import codec
     from deltarice_tpu_torch.models import get_profile
-    from deltarice_tpu_torch.native import native_compress
     from deltarice_tpu_torch.ops import prefilter
     from deltarice_tpu_torch.ops.split_decode import unpack_decode_split
     from deltarice_tpu_torch.ops.unpack_cuda import (
         unpack_decode, unpack_decode_plain)
 
     t0 = time.perf_counter()
-
-    def plane(blob, nseg):
-        buf = np.frombuffer(blob, dtype="<u4")
-        counts, starts = codec.walk_headers(buf, nseg)
-        w = codec.gather_segments(buf, counts, starts)
-        return torch.from_numpy(w.view(np.int32)), counts
-
     said = []
     for name in HOSTILE_FLIPS:
         cfg = get_profile(name).config
-        chunk = data[name][:CHUNK_ROWS]
-        blob = native_compress(chunk, cfg.to_cd_values())
-        cases = (hc.one_segment(blob, CHUNK_ROWS)
-                 + hc.bad_payloads(blob, CHUNK_ROWS))
-        for case, s in cases:
-            words, counts = plane(s, CHUNK_ROWS)
-            n = cfg.waveform_length
+        n = cfg.waveform_length
+        for case, words, counts, _s in hostile_planes(
+                hc, cfg, data[name][:CHUNK_ROWS]):
             for delta in (True, False):
                 check(guard_equal(
                     lambda w: unpack_decode(w, n, cfg.k, delta), [words],
@@ -2408,13 +2481,7 @@ def hostile_kernels(hc, data) -> None:
         said.append(name)
     for filt in hc.GENERIC_FILTERS:
         cfg = dt.RiceConfig(8, LENGTH, filt)
-        blob = native_compress(data["nab"][:CHUNK_ROWS], cfg.to_cd_values())
-        cases = hc.flips(blob, 8) + hc.bad_payloads(blob, CHUNK_ROWS)
-        rows = [plane(s, CHUNK_ROWS)[0] for s in hc.batchable(
-            [s for _c, s in cases], CHUNK_ROWS, CHUNK_ROWS * LENGTH)]
-        width = max(r.shape[1] for r in rows)
-        words = torch.cat([torch.nn.functional.pad(r, (0, width - r.shape[1]))
-                           for r in rows]).cuda()
+        words = garbage_words(hc, cfg, data["nab"][:CHUNK_ROWS]).cuda()
         values = unpack_decode(words, LENGTH, cfg.k, False)
         check(guard_equal(lambda v: prefilter.prefilter_decode(v, cfg.filt),
                           [values],
@@ -2471,48 +2538,70 @@ def phase_memcheck() -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
 
-def memcheck_child() -> int:
-    """What phase 14 runs under compute-sanitizer: one bucket of corrupt
-    streams of each geometry (split switch off and on), the generic
-    filters' flips on Nab, and a verify-retry with a cut header on each
-    geometry. Prints its launches; exits nonzero on a mismatch."""
-    sys.path.insert(0, str(ROOT))
+def memcheck_runs(hc, geoms) -> list:
+    """The streams of the memcheck set: (name, cfg, chunk) of each
+    geometry's chunk and of the Nab chunk under each generic filter.
+    ``geoms`` maps each geometry to its (cfg, chunk)."""
     import deltarice_tpu_torch as dt
-    from deltarice_tpu_torch.models import get_profile
+
+    nab_cfg, nab = geoms["nab"]
+    return ([(name, cfg, chunk) for name, (cfg, chunk) in geoms.items()]
+            + [(f"nab.{'_'.join(map(str, f))}",
+                dt.RiceConfig(8, nab_cfg.waveform_length, f), nab)
+               for f in hc.GENERIC_FILTERS])
+
+
+def memcheck_stream(hc, name, cfg, chunk, device="cuda") -> list:
+    """One stream of the memcheck set on ``device``: its encode (native
+    ``dr_compress``'s bytes), a bucket of its corrupt streams (flips and bad
+    payloads) through ``decompress_batch`` with the split switch off and on
+    (native ``dr_decompress``'s samples), its one-segment stream through
+    ``decompress``, and, lossless, a verify-retry of a cut header. Returns
+    what came out."""
+    import deltarice_tpu_torch as dt
     from deltarice_tpu_torch.native import native_compress, native_decompress
+
+    cd = cfg.to_cd_values()
+    nseg = cfg.segments(chunk.size)[0]
+    blob = dt.compress(chunk, cfg, device=device)
+    check(blob == native_compress(chunk, cd), f"{name}: encode")
+    cases = hc.flips(blob, MEMCHECK_FLIPS) + hc.bad_payloads(blob, nseg)
+    batch = hc.batchable([s for _n, s in cases], nseg, chunk.size)
+    want = [native_decompress(s, cd) for s in batch]
+    outs = [blob]
+    for on in (False, True):
+        split_switch(on)
+        got = dt.decompress_batch(batch, cfg, device=device)
+        check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+              f"{name} {list(cfg.filt)}: a hostile decode differs")
+        outs += got
+    split_switch(False)
+    wide = hc.one_segment(blob, nseg)[0][1]
+    got = dt.decompress(wide, cfg, device=device)
+    check(np.array_equal(got, native_decompress(wide, cd)),
+          f"{name}: the one-segment stream differs")
+    outs.append(got)
+    if cfg.lossless:  # a lossy filter never round-trips
+        with faulty_frames(hc, "header", {0}):
+            got = dt.compress_batch([chunk], cfg, verify=True, device=device)
+        check(got == [blob], f"{name}: verify-retry")
+    return outs
+
+
+def memcheck_child() -> int:
+    """What phase 14 runs under compute-sanitizer: the memcheck set (one
+    bucket of corrupt streams of each geometry, split switch off and on, the
+    generic filters' flips on Nab, and a verify-retry with a cut header on
+    each geometry). Prints its launches; exits nonzero on a mismatch."""
+    sys.path.insert(0, str(ROOT))
     from deltarice_tpu_torch.ops import _kernels
 
     hc = hostile_cases()
     _kernels.reset_launches()
     try:
-        runs = [(name, get_profile(name).config) for name in HOSTILE_FLIPS]
-        runs += [("nab", dt.RiceConfig(8, LENGTH, f))
-                 for f in hc.GENERIC_FILTERS]
-        for name, cfg in runs:
-            chunk = get_profile(name).synthetic(CHUNK_ROWS, seed=0)
-            cd = cfg.to_cd_values()
-            blob = dt.compress(chunk, cfg, device="cuda")
-            check(blob == native_compress(chunk, cd), f"{name}: encode")
-            cases = (hc.flips(blob, MEMCHECK_FLIPS)
-                     + hc.bad_payloads(blob, CHUNK_ROWS))
-            batch = hc.batchable([s for _n, s in cases], CHUNK_ROWS,
-                                 chunk.size)
-            want = [native_decompress(s, cd) for s in batch]
-            for on in (False, True):
-                split_switch(on)
-                got = dt.decompress_batch(batch, cfg, device="cuda")
-                check(all(np.array_equal(g, w) for g, w in zip(got, want)),
-                      f"{name} {list(cfg.filt)}: a hostile decode differs")
-            split_switch(False)
-            wide = hc.one_segment(blob, CHUNK_ROWS)[0][1]
-            check(np.array_equal(dt.decompress(wide, cfg, device="cuda"),
-                                 native_decompress(wide, cd)),
-                  f"{name}: the one-segment stream differs")
-            if cfg.lossless:  # a lossy filter never round-trips
-                with faulty_frames(hc, "header", {0}):
-                    got = dt.compress_batch([chunk], cfg, verify=True,
-                                            device="cuda")
-                check(got == [blob], f"{name}: verify-retry")
+        runs = memcheck_runs(hc, guard_geometries())
+        for name, cfg, chunk in runs:
+            memcheck_stream(hc, name, cfg, chunk)
             torch.cuda.synchronize()
         for kernel in ("pack_encode", "concentrate_packed", "concentrate_wide",
                        "unpack_decode", "split_decode", "concentrate_wide16",
@@ -2526,6 +2615,630 @@ def memcheck_child() -> int:
           f"on), one-segment streams and verify-retries; launches "
           f"{json.dumps(dict(_kernels.launches), sort_keys=True)}")
     return 0
+
+
+class GuardCase(NamedTuple):
+    """One case of phase 15: ``run(device)`` runs it on ``device`` and
+    returns what came out, or raises :class:`SmokeFailure` where an output
+    differs from its reference; ``launches`` are the kernel wrappers it
+    launches on the card."""
+
+    name: str
+    launches: tuple
+    run: Callable
+
+
+def guard_geometries(rows: int = CHUNK_ROWS) -> dict:
+    """(cfg, chunk) of each geometry: ``rows`` synthetic waveforms of seed
+    0 at the profile's own length and M."""
+    from deltarice_tpu_torch.models import get_profile
+
+    return {name: (get_profile(name).config,
+                   get_profile(name).synthetic(rows, seed=0))
+            for name in HOSTILE_FLIPS}
+
+
+def _on(a, device):
+    """Tensors (also inside tuples and lists) on ``device``; other values
+    as they are."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    if isinstance(a, (tuple, list)):
+        return type(a)(_on(b, device) for b in a)
+    return a
+
+
+def _same(got, want) -> bool:
+    """Equal tensors, arrays, bytes (also inside tuples and lists): dtype,
+    shape and every element."""
+    if isinstance(got, (tuple, list)):
+        return (isinstance(want, (tuple, list)) and len(got) == len(want)
+                and all(_same(g, w) for g, w in zip(got, want)))
+    if isinstance(got, torch.Tensor):
+        return (isinstance(want, torch.Tensor) and got.dtype == want.dtype
+                and got.shape == want.shape
+                and torch.equal(signed(got.cpu()), signed(want.cpu())))
+    if isinstance(got, np.ndarray):
+        return (isinstance(want, np.ndarray) and got.dtype == want.dtype
+                and np.array_equal(got, want))
+    return got == want
+
+
+def _digest(out, h=None) -> str:
+    """A short hash of a case's outputs: two runs that differ in anything
+    (an output that depends on the poison byte) give two hashes."""
+    top = h is None
+    h = hashlib.sha1() if top else h
+    if isinstance(out, (tuple, list)):
+        for o in out:
+            _digest(o, h)
+    elif isinstance(out, torch.Tensor):
+        h.update(str((out.dtype, tuple(out.shape))).encode())
+        h.update(signed(out.detach().cpu().contiguous()).numpy().tobytes())
+    elif isinstance(out, np.ndarray):
+        h.update(str((out.dtype, out.shape)).encode())
+        h.update(np.ascontiguousarray(out).tobytes())
+    else:
+        h.update(repr(out).encode() if not isinstance(out, (bytes, bytearray))
+                 else bytes(out))
+    return h.hexdigest()[:12] if top else ""
+
+
+def kernel_case(name, launches, fn, inputs, plain=None) -> GuardCase:
+    """``fn`` on ``inputs`` moved to the device, held to ``plain`` (``fn``
+    where not given: its wrapper's plain version) on CPU copies. On the CPU
+    ``fn`` is its plain version, so that comparison runs on the card."""
+    def run(device):
+        got = fn(*_on(inputs, device))
+        if plain is None and device == "cpu":
+            return got
+        want = (plain or fn)(*_on(inputs, "cpu"))
+        check(_same(got, want), f"{name}: the output differs from the "
+              f"plain version's")
+        return got
+    return GuardCase(name, tuple(launches), run)
+
+
+def _signal(rows, n, seed, k):
+    """(rows, n) int16 of seed: smooth rows (a random walk, small
+    residuals) and, for rows 1 and 4 mod 5, uniform noise (escapes)."""
+    rng = np.random.default_rng(seed)
+    x = np.cumsum(rng.normal(0, 2 ** max(k, 1), (rows, n)), axis=1)
+    x = np.clip(np.round(x), -32768, 32767).astype(np.int16)
+    noisy = np.arange(rows) % 5 % 3 == 1
+    x[noisy] = rng.integers(-32768, 32768, (int(noisy.sum()), n))
+    return x
+
+
+def _packed(x, k):
+    """Plain B1 of ``x`` (delta, every sample valid) at the full bound:
+    (words with one zero pad word, nwords), CPU tensors."""
+    from deltarice_tpu_torch.ops.pack_cuda import pack_encode_plain
+
+    nv = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32)
+    cap = -(-25 * x.shape[1] // 32) + 1
+    words, nwords, _ = pack_encode_plain(torch.from_numpy(x), nv, None, k,
+                                         True, cap)
+    w = int(nwords.max()) + 1
+    return words[:, :w].contiguous(), nwords
+
+
+def ragged_cases(tc) -> list[GuardCase]:
+    """Case c: every kernel at ragged shapes against its plain version,
+    B4, B7 and B8 (on no codec path) included. ``tc`` is
+    ``tests/tiled_cases.py``."""
+    from deltarice_tpu_torch.ops import prefilter_cuda
+    from deltarice_tpu_torch.ops.concentrate_cuda import (
+        DEAD, biased_plane, concentrate_packed, concentrate_wide,
+        concentrate_wide16)
+    from deltarice_tpu_torch.ops.concentrate_tiled_cuda import (
+        concentrate_tiled, concentrate_tiled_vd)
+    from deltarice_tpu_torch.ops.pack_cuda import pack_encode
+    from deltarice_tpu_torch.ops.prefilter import iir_decode_plain
+    from deltarice_tpu_torch.ops.prefilter_model import plan
+    from deltarice_tpu_torch.ops.split_decode import _local_width
+    from deltarice_tpu_torch.ops.split_decode_cuda import (
+        split_decode, split_decode_passes)
+    from deltarice_tpu_torch.ops.transpose_cuda import transpose2d
+    from deltarice_tpu_torch.ops.unpack_cuda import (
+        unpack_decode, unpack_tables)
+
+    cases = []
+    for i, n in enumerate(RAGGED_N):
+        nseg = 33 if i % 2 == 0 else 1
+        for k in (0, 15):
+            x = _signal(nseg, n, i, k)
+            rng = np.random.default_rng(100 + i)
+            nv = np.full(nseg, n, np.int32)
+            nv[::3] = rng.integers(0, n + 1, len(nv[::3]))
+            prev0 = rng.integers(-32768, 32768, nseg).astype(np.int32)
+            full = -(-25 * n // 32) + 1
+            for cap, diff, p0 in ((full, True, prev0), (max(1, full // 3),
+                                                        k == 0, None)):
+                cases.append(kernel_case(
+                    f"c.pack_encode.n{n}.s{nseg}.k{k}.cap{cap}",
+                    ("pack_encode",),
+                    lambda a, b, c, k=k, d=diff, cap=cap: pack_encode(
+                        a, b, c, k, d, cap),
+                    [torch.from_numpy(x), torch.from_numpy(nv),
+                     None if p0 is None else torch.from_numpy(p0)]))
+            words, _nw = _packed(x, k)
+            deltas = (True, False) if n < 4096 else (k == 15,)
+            for delta in deltas:
+                cases.append(kernel_case(
+                    f"c.unpack_decode.n{n}.s{nseg}.k{k}.d{int(delta)}",
+                    ("unpack_decode",),
+                    lambda w, n=n, k=k, d=delta: unpack_decode(w, n, k, d),
+                    [words]))
+            cases.append(kernel_case(
+                f"c.unpack_tables.n{n}.s{nseg}.k{k}", ("unpack_tables",),
+                lambda w, k=k: unpack_tables(w, k), [words]))
+    # concentration: slot counts off the 16-byte paths' width (8 slots)
+    for i, (rows, r) in enumerate(((1, 1), (33, 7), (1, 9), (33, 1025),
+                                   (1, 4099), (33, 7001))):
+        vals, disp = tc.random_rows(rows, r, 0.6, 200 + i, gaps=True)
+        count = int((disp >= 0).sum(axis=1).max(initial=0))
+        v = torch.from_numpy(vals)
+        d = torch.from_numpy(disp)
+        lead = torch.where(d >= 0, (d << 16) | (v.to(torch.int32) & 0xFFFF),
+                           DEAD)
+        plane16 = torch.where(d >= 0, biased_plane(
+            d.clamp(min=0), v.to(torch.int32) & 0xFFFF), DEAD)
+        for n_out in (max(1, count // 2), r + 5):
+            cases.append(kernel_case(
+                f"c.concentrate_packed.r{r}.s{rows}.o{n_out}",
+                ("concentrate_packed",),
+                lambda a, b, n_out=n_out: concentrate_packed((a, b), n_out,
+                                                             True),
+                [lead, v]))
+            cases.append(kernel_case(
+                f"c.concentrate_packed.narrow.r{r}.s{rows}.o{n_out}",
+                ("concentrate_packed",),
+                lambda a, n_out=n_out: concentrate_packed((a,), n_out, False),
+                [lead]))
+            for dtype in (torch.int16, torch.int32):
+                cases.append(kernel_case(
+                    f"c.concentrate_wide.{str(dtype)[6:]}.r{r}.s{rows}."
+                    f"o{n_out}", ("concentrate_wide",),
+                    lambda a, b, n_out=n_out: concentrate_wide(a, b, n_out),
+                    [v.to(dtype), d]))
+            cases.append(kernel_case(
+                f"c.concentrate_wide16.r{r}.s{rows}.o{n_out}",
+                ("concentrate_wide16",),
+                lambda a, n_out=n_out: concentrate_wide16(a, n_out),
+                [plane16]))
+    # B4: one element, ragged pitches off the vector path, a 3-D batch
+    for dtype, shape in ((torch.int16, (1, 1)), (torch.int16, (7, 9)),
+                         (torch.uint32, (3, 5)), (torch.int16, (33, 65)),
+                         (torch.int32, (9, 1025)), (torch.int16, (2, 7, 9)),
+                         (torch.int16, (16, 24))):
+        x = torch.from_numpy(np.random.default_rng(7).integers(
+            0, 1 << 15, shape).astype(str(dtype)[6:]))
+        cases.append(kernel_case(
+            f"c.transpose2d.{str(dtype)[6:]}.{'x'.join(map(str, shape))}",
+            ("transpose2d",), transpose2d, [x]))
+    # B7 and B8 on tiled_cases' ragged slot axes, one-element lanes, and
+    # more and fewer output slots than staged
+    for case in ("ragged", "scalar_lanes", "n_out_wide", "past_out"):
+        for kind in tc.KINDS:
+            ps, _rows, sb, n_out, _lanes = tc.planes(case, kind)
+            if kind == "vd":
+                fn, name = (lambda a, b, n_out=n_out, sb=sb:
+                            concentrate_tiled_vd(a, b, n_out, sb)), \
+                    "concentrate_tiled_vd"
+            else:
+                emit = "u32" if kind == "u32" else "int16"
+                fn, name = (lambda *p, n_out=n_out, sb=sb, e=emit, b=kind:
+                            concentrate_tiled(p, n_out, sb, e, b == "bias")), \
+                    "concentrate_tiled"
+            cases.append(kernel_case(f"c.{name}.{case}.{kind}", (name,), fn,
+                                     list(ps)))
+    # B9: one segment and 33, one part and several, with and without a halo,
+    # a local width that cuts the rows
+    for nseg, n, k, parts, halo in ((1, 1025, 3, 1, 0), (33, 1025, 3, 3, 5),
+                                    (1, 7001, 15, 8, 2), (33, 9, 0, 2, 1)):
+        words, nw = _packed(_signal(nseg, n, nseg + parts, k), k)
+        counts = nw.numpy().astype(np.int64)
+        wsub = -(-int(counts.max(initial=1)) // parts)
+        wv = np.clip(counts[:, None] - np.arange(parts)[None, :] * wsub, 0,
+                     wsub).astype(np.int32).reshape(-1)
+        for lw in (_local_width(n, parts), max(1, n // (2 * parts))):
+            args = (parts, wsub, halo, lw, k, True)
+            cases.append(kernel_case(
+                f"c.split_decode.n{n}.s{nseg}.p{parts}.h{halo}.lw{lw}",
+                ("split_decode",),
+                lambda w, v, a=args: split_decode(w, v, *a),
+                [words, torch.from_numpy(wv)]))
+        cases.append(GuardCase(
+            f"c.split_decode_passes.n{n}.s{nseg}.p{parts}",
+            ("split_decode_passes",),
+            functools.partial(_passes_run, split_decode_passes, words,
+                              torch.from_numpy(wv), args)))
+    # the generic inverse: the scalar path (n % 8), n = 8, the blocked scan
+    # with one block a row and two, the serial walk with 9 taps and with
+    # 1100 (ring in shared memory) and 2500 (ring in global memory)
+    rng = np.random.default_rng(11)
+    taps_1100 = (1,) + tuple(int(t) for t in rng.integers(-3, 4, 1099))
+    taps_2500 = (1,) + tuple(int(t) for t in rng.integers(-3, 4, 2499))
+    for label, filt, shape, block in (
+            ("scalar", (1, 0, -1), (3, 1001), None),
+            ("n8", (1, 0, -1), (5, 8), None),
+            ("nb1", (1, -1, 0, 1), (4, 1000), 1024),
+            ("nb2", (1, -1, 0, 1), (4, 1000), 504),
+            ("serial9", (3, 1, -2, 4, 0, -1, 2, 5, -3), (2, 333), None),
+            ("serial1100", taps_1100, (2, 500), None),
+            ("serial2500", taps_2500, (2, 700), None)):
+        d = torch.from_numpy(rng.integers(-32768, 32768, shape)
+                             .astype(np.int16))
+        path = plan(filt, *shape, block)[0]
+        cases.append(kernel_case(
+            f"c.iir_decode.{label}", ("iir_decode", f"iir_decode.{path}"),
+            lambda t, f=filt, b=block: (
+                prefilter_cuda.iir_decode(t, f, b) if t.is_cuda
+                else iir_decode_plain(t, f)), [d]))
+    d = torch.from_numpy(rng.integers(-32768, 32768, (3, 1001))
+                         .astype(np.int16))
+    cases.append(kernel_case(
+        "c.iir_decode_serial", ("iir_decode_serial",),
+        lambda t: (prefilter_cuda.iir_decode_serial(t, (1, 0, -1))
+                   if t.is_cuda else iir_decode_plain(t, (1, 0, -1))), [d]))
+    return cases
+
+
+def _passes_run(passes_fn, words, wv, args, device):
+    """B9 stopped after each of its passes on the card (what a stopped
+    launch writes is no result: the guard pages and the poison are what
+    hold it); nothing on the CPU, where the launch has no plain version."""
+    if device == "cpu":
+        return []
+    for passes in range(1, 5):
+        passes_fn(words.to(device), wv.to(device), *args, passes)
+    return []
+
+
+def hostile_guard_cases(hc, geoms) -> list[GuardCase]:
+    """Case b: the decode kernels on the hostile planes of phase 14 at each
+    geometry's chunk (the one-segment and bad-payload streams), and on
+    planes of width 1 (the pad word alone) and 2 and rows full up to the
+    pad word. B2 (delta on and off) is held to native ``dr_decompress`` of
+    the stream a plane came from (delta off: its wrapped differences), and
+    on the made-up planes (``GUARD_MADE_ROWS`` rows) to the plain model of
+    its tiled passes (``ops/tiled_model.py``: the serial plain decode takes
+    minutes at nEDM and NOPTREX); B9 + B6 (8 and 32 parts) to B2 on every
+    segment they do not flag; the generic inverse (blocked and serial) on
+    Nab's garbage decodes to its plain version."""
+    import deltarice_tpu_torch as dt
+    from deltarice_tpu_torch.ops.split_decode import unpack_decode_split
+    from deltarice_tpu_torch.ops.unpack_cuda import unpack_decode
+
+    cases = []
+    for name, (cfg, chunk) in geoms.items():
+        n, k = cfg.waveform_length, cfg.k
+        planes = hostile_planes(hc, cfg, chunk)
+        rng = np.random.default_rng(3)
+        full = rng.integers(1, 1 << 32, (GUARD_MADE_ROWS,
+                                         planes[1][1].shape[1]),
+                            dtype=np.uint64)
+        full[:, -1] = 0
+        two = np.zeros((GUARD_MADE_ROWS, 2), np.uint64)
+        two[:, 0] = rng.integers(0, 1 << 32, GUARD_MADE_ROWS, dtype=np.uint64)
+        for label, words in (
+                ("width1", np.zeros((GUARD_MADE_ROWS, 1), np.uint64)),
+                ("width2", two), ("full_rows", full)):
+            words = torch.from_numpy(words.astype(np.uint32).view(np.int32))
+            planes.append((label, words, np.full(GUARD_MADE_ROWS,
+                                                 words.shape[1] - 1), None))
+        for case, words, counts, stream in planes:
+            case = case.replace(" ", "_")
+            for delta in (True, False):
+                ref = functools.partial(_b2_reference, cfg, len(counts),
+                                        stream, delta)
+                cases.append(kernel_case(
+                    f"b.{name}.{case}.B2.d{int(delta)}", ("unpack_decode",),
+                    lambda w, n=n, k=k, d=delta: unpack_decode(w, n, k, d),
+                    [words], ref))
+            if name == "nab":
+                continue
+            for parts in (8, 32):
+                cases.append(GuardCase(
+                    f"b.{name}.{case}.B9.p{parts}",
+                    ("split_decode", "concentrate_wide16", "unpack_decode"),
+                    functools.partial(_split_run, unpack_decode_split,
+                                      unpack_decode, words, counts, n, k,
+                                      parts)))
+    nab_cfg, nab = geoms["nab"]
+    for filt in hc.GENERIC_FILTERS:
+        cfg = dt.RiceConfig(8, nab_cfg.waveform_length, filt)
+        path = "blocked" if abs(filt[0]) == 1 else "serial"
+        cases.append(GuardCase(
+            f"b.nab.garbage.{'_'.join(map(str, filt))}",
+            ("unpack_decode", "iir_decode", f"iir_decode.{path}"),
+            functools.partial(_garbage_run, unpack_decode, cfg,
+                              garbage_words(hc, cfg, nab))))
+    return cases
+
+
+def _b2_reference(cfg, nseg, stream, delta, words):
+    """What B2 must give on a hostile plane: native ``dr_decompress`` of its
+    stream (delta off: the wrapped differences of those samples, which
+    B2's delta inverse sums back), or, for a plane made without a stream,
+    the plain model of B2's tiled passes (on the CPU: its loop of small
+    torch ops would cost the guard allocator a mapping each)."""
+    from deltarice_tpu_torch.native import native_decompress
+    from deltarice_tpu_torch.ops.tiled_model import decode_tiled
+
+    n = cfg.waveform_length
+    if stream is None:
+        return decode_tiled(words, n, cfg.k, delta)
+    x = native_decompress(stream, cfg.to_cd_values()).reshape(nseg, n)
+    if not delta:
+        x = np.diff(x.astype(np.int64), axis=1, prepend=0)
+        x = (((x + 32768) & 0xFFFF) - 32768).astype(np.int16)
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _garbage_run(unpack_fn, cfg, words, device):
+    """The generic inverse on B2's decode of garbage words, held to its
+    plain version on a CPU copy of the same values."""
+    from deltarice_tpu_torch.ops import prefilter
+
+    values = unpack_fn(words.to(device), cfg.waveform_length, cfg.k, False)
+    got = prefilter.prefilter_decode(values, cfg.filt)
+    want = prefilter.iir_decode_plain(values.cpu(), cfg.filt)
+    check(_same(got, want), f"the generic inverse {cfg.filt} on garbage "
+          f"decodes differs from its plain version")
+    return got
+
+
+def _split_run(split_fn, exact_fn, words, counts, n, k, parts, device):
+    """B9 + B6 on a hostile plane: every segment they do not flag must
+    equal B2's exact decode of it."""
+    w = words.to(device)
+    got, bad = split_fn(w, counts, n, k, True, parts,
+                        np.full(len(counts), n))
+    exact = exact_fn(w, n, k, True)
+    ok = ~bad.cpu()
+    check(torch.equal(got.cpu()[ok], exact.cpu()[ok]),
+          f"B9 + B6 at {parts} parts: a segment they did not flag differs "
+          f"from B2's decode")
+    return [got[ok.to(got.device)], bad]
+
+
+def encode_cases(geoms) -> list[GuardCase]:
+    """Case d: ``compress_batch`` at every geometry against native
+    ``dr_compress``, of the chunk and, in a batch of its own, of the chunk
+    with every fifth row uniform noise: Nab with its rows forced over a
+    word cap of 256 (so that every row re-encodes at the full bound), nEDM
+    and NOPTREX by the split encode, whose merge takes B3 (nEDM's smooth
+    chunk) and B5 (NOPTREX, and nEDM's noisy sub-streams, too wide for
+    B3's packed planes)."""
+    from deltarice_tpu_torch import codec
+
+    cases = []
+    for name, (cfg, chunk) in geoms.items():
+        noisy = chunk.copy()
+        noisy[1::5] = np.random.default_rng(5).integers(
+            -32768, 32768, noisy[1::5].shape)
+        merge = {"nab": (), "nedm": ("concentrate_packed",
+                                     "concentrate_wide"),
+                 "noptrex": ("concentrate_wide",)}[name]
+        cases.append(GuardCase(
+            f"d.{name}", ("pack_encode",) + merge,
+            functools.partial(_encode_run, codec, cfg, [chunk, noisy],
+                              name == "nab")))
+    return cases
+
+
+def _encode_run(codec, cfg, chunks, capped, device):
+    from deltarice_tpu_torch.native import native_compress
+
+    real = codec._words_hint
+    if capped:
+        codec._words_hint = lambda x, c, n: min(256, c.max_words(n))
+    try:
+        got = [s for c in chunks
+               for s in codec.compress_batch([c], cfg, device=device)]
+    finally:
+        codec._words_hint = real
+    want = [native_compress(c, cfg.to_cd_values()) for c in chunks]
+    check([bytes(g) for g in got] == want,
+          "compress_batch differs from native dr_compress")
+    return got
+
+
+def guard_cases(hc, tc, geoms) -> list[GuardCase]:
+    """Every case of phase 15 in order: a (the memcheck set), b (the
+    hostile planes), c (ragged shapes), d (encode)."""
+    cases = [GuardCase(f"a.{name}", ("pack_encode", "unpack_decode"),
+                       functools.partial(memcheck_stream, hc, name, cfg,
+                                         chunk))
+             for name, cfg, chunk in memcheck_runs(hc, geoms)]
+    return (cases + hostile_guard_cases(hc, geoms) + ragged_cases(tc)
+            + encode_cases(geoms))
+
+
+def own_allocations() -> None:
+    """Hand every kernel wrapper clones of its CUDA tensor arguments (also
+    inside tuples and lists), wherever the port bound the wrapper's name:
+    each input is then an allocation of its own under the guard
+    allocator, never a view into a larger buffer."""
+    import importlib
+
+    # the modules that bind wrapper names, imported before the rebinding
+    importlib.import_module("deltarice_tpu_torch.h5")
+
+    def own(a):
+        if isinstance(a, torch.Tensor) and a.is_cuda:
+            return a.clone()
+        if isinstance(a, (tuple, list)):
+            return type(a)(own(b) for b in a)
+        return a
+
+    for module, names in GUARD_WRAPPERS.items():
+        mod = importlib.import_module(f"deltarice_tpu_torch.ops.{module}")
+        for name in names:
+            orig = getattr(mod, name)
+
+            @functools.wraps(orig)
+            def cloned(*args, _orig=orig, **kw):
+                return _orig(*own(args), **{k: own(v) for k, v in kw.items()})
+
+            for m in list(sys.modules.values()):
+                port = getattr(m, "__name__", "").startswith(
+                    "deltarice_tpu_torch")
+                if port and getattr(m, name, None) is orig:
+                    setattr(m, name, cloned)
+
+
+def guard_child(mode: str, fill: int, only: str | None = None) -> int:
+    """One placement of phase 15 (``chip_smoke.py --guard MODE --fill N``):
+    the guard allocator installed before the first CUDA allocation, every
+    kernel input an allocation of its own, then the cases, each announced
+    before it runs and confirmed, with a hash of its outputs, after its
+    ``torch.cuda.synchronize()``, which must have launched each wrapper
+    the case names. Ends with the launches (every wrapper and each path of
+    the generic inverse must have launched), the case count and the
+    allocator's peak mappings."""
+    sys.path.insert(0, str(ROOT))
+    from deltarice_tpu_torch.testing import guard
+
+    t0 = time.perf_counter()
+    guard.install(mode, fill)
+    from deltarice_tpu_torch.ops import _kernels
+
+    own_allocations()
+    cases = [c for c in guard_cases(hostile_cases(), tests_module(
+        "tiled_cases"), guard_geometries())
+             if only is None or c.name.startswith(only)]
+    print(f"[guard] {mode} placement, poison 0x{fill:02X}: {len(cases)} "
+          f"cases built in {time.perf_counter() - t0:.1f} s", flush=True)
+    _kernels.reset_launches()
+    try:
+        for case in cases:
+            print(f"{guard.CASE}{case.name}", flush=True)
+            t, n = time.perf_counter(), guard.stats()["allocs"]
+            before = collections.Counter(_kernels.launches)
+            out = case.run("cuda")
+            torch.cuda.synchronize()
+            idle = [k for k in case.launches
+                    if _kernels.launches[k] == before[k]]
+            check(not idle, f"{case.name} never launched {idle}")
+            print(f"{guard.OK}{case.name} {_digest(out)} "
+                  f"{time.perf_counter() - t:.3f} s "
+                  f"{guard.stats()['allocs'] - n} allocations", flush=True)
+        if only is None:
+            missing = sorted(k for k in GUARD_KERNELS + IIR_PATHS
+                             if not _kernels.launches.get(k))
+            check(not missing, f"never launched {missing}")
+    except SmokeFailure as e:
+        print(f"[guard] FAILED {e}", flush=True)
+        return 1
+    s = guard.stats()
+    print(f"[guard] {mode}: {len(cases)} cases, 0 faults, every output equal "
+          f"to its reference; launches "
+          f"{json.dumps(dict(_kernels.launches), sort_keys=True)}; "
+          f"allocations {s['allocs']}, peak {s['peak']} mappings of "
+          f"{s['peak_bytes']} bytes; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return 0
+
+
+def guard_process(args: list[str]) -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, *args], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def guard_wait(proc: subprocess.Popen, what: str) -> tuple[str, float]:
+    """A child's output and seconds; kills and reaps it past
+    ``GUARD_TIMEOUT``."""
+    t0 = time.perf_counter()
+    try:
+        out = proc.communicate(timeout=GUARD_TIMEOUT)[0]
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out = proc.communicate()[0]
+        raise SmokeFailure(f"{what} ran past {GUARD_TIMEOUT} s:\n"
+                           + "\n".join(out.splitlines()[-20:]))
+    return out, time.perf_counter() - t0
+
+
+def control_verdict(fault: str, rc: int, out: str) -> str:
+    """What a positive-control child must show: the last byte of an end
+    buffer and the first of a front buffer read back, then death in case
+    ``control.<fault>`` with an illegal address. Returns the error line;
+    raises :class:`SmokeFailure` otherwise."""
+    from deltarice_tpu_torch.testing import guard
+
+    unfinished, error = guard.read_child(out)
+    check(rc not in (0, None) and unfinished == f"control.{fault}"
+          and guard.illegal_address(error)
+          and f"{guard.OK}control.end_last" in out
+          and f"{guard.OK}control.front_first" in out,
+          f"positive control {fault}: rc {rc}, died in {unfinished} with "
+          f"{error}:\n" + "\n".join(out.splitlines()[-20:]))
+    return error
+
+
+def guard_verdict(mode: str, rc: int, out: str) -> dict:
+    """A placement child's output: the hash of every case's outputs by case
+    name. A child that exited nonzero raises :class:`SmokeFailure` naming
+    the case it started and did not finish, and its error."""
+    from deltarice_tpu_torch.testing import guard
+
+    if rc != 0:
+        unfinished, error = guard.read_child(out)
+        raise SmokeFailure(f"guard {mode}: the child exited {rc} in case "
+                           f"{unfinished} with {error}:\n"
+                           + "\n".join(out.splitlines()[-30:]))
+    return dict(ln.split()[2:4] for ln in out.splitlines()
+                if ln.startswith(guard.OK))
+
+
+def phase_guard() -> dict:
+    """Phase 15: the positive control (two children, run together), then
+    both placements as child processes (run together; see
+    :func:`guard_child`), whose outputs must also hash alike under their
+    two poison bytes; returns each placement's case count and seconds."""
+    from deltarice_tpu_torch.testing import guard
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the children need the card's memory
+    guard.build()
+    ctl = {fault: guard_process(["-m", "deltarice_tpu_torch.testing.guard",
+                                 "control", "--fault", fault])
+           for fault in ("past_end", "before_start")}
+    said = []
+    for fault, proc in ctl.items():
+        out, _s = guard_wait(proc, f"the positive control {fault}")
+        said.append(f"{fault} died in control.{fault} with "
+                    f"\"{control_verdict(fault, proc.returncode, out)}\"")
+    print(f"[15 guard] positive control: the last byte of an end buffer and "
+          f"the first of a front buffer read back; {'; '.join(said)}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    procs = {mode: guard_process([str(ROOT / "chip_smoke.py"), "--guard",
+                                  mode, "--fill", str(fill)])
+             for mode, fill in GUARD_RUNS}
+    results, digests = {}, {}
+    for mode, proc in procs.items():
+        out, secs = guard_wait(proc, f"the guard child {mode}")
+        digests[mode] = guard_verdict(mode, proc.returncode, out)
+        for ln in out.splitlines():
+            if ln.startswith(f"[guard] {mode}"):
+                print(f"[15 guard] {ln[8:]}")
+        took = re.findall(r"; ([0-9.]+) s$", out.strip())
+        results[mode] = {"cases": len(digests[mode]),
+                         "seconds": float(took[-1]) if took else secs}
+    (a, da), (b, db) = digests.items()
+    differ = sorted(k for k in da if da[k] != db.get(k))
+    check(da.keys() == db.keys() and not differ,
+          f"guard: outputs differ between the {a} and {b} runs (their "
+          f"poison bytes differ) in {differ[:10]}")
+    took = ", ".join(f"{m} {r['seconds']} s" for m, r in results.items())
+    print(f"[15 guard] {len(da)} cases a placement, the children took "
+          f"{took}; every output hashes alike under both poison bytes; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return results
 
 
 def run() -> int:
@@ -2593,6 +3306,9 @@ def run() -> int:
         t = time.perf_counter()
         counted["hostile"] = phase_hostile(data)
         print(f"[14 hostile] {card}; {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_guard()
+        print(f"[15 guard] {card}; {time.perf_counter() - t:.1f} s")
         left = child_processes()
         check(not left, f"processes left running: {left}")
     except SmokeFailure as e:
@@ -2623,5 +3339,28 @@ def run() -> int:
     return 0
 
 
+def main(argv: list[str]) -> int:
+    """No arguments: the smoke run. ``--memcheck``: phase 14's child under
+    compute-sanitizer. ``--guard end|front --fill BYTE [--cases PREFIX]``:
+    one placement of phase 15 (the cases whose names start with PREFIX)."""
+    if not argv:
+        return run()
+    if argv == ["--memcheck"]:
+        return memcheck_child()
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py")
+    ap.add_argument("--guard", choices=("end", "front"), required=True)
+    ap.add_argument("--fill", type=int, required=True)
+    ap.add_argument("--cases", default=None)
+    args = ap.parse_args(argv)
+    if not (torch.cuda.is_available()
+            and (ROOT / "deltarice_tpu_torch" / "__init__.py").is_file()):
+        print("chip_smoke: the guard child needs a CUDA card and a checkout",
+              file=sys.stderr)
+        return 2
+    return guard_child(args.guard, args.fill, args.cases)
+
+
 if __name__ == "__main__":
-    sys.exit(memcheck_child() if sys.argv[1:] == ["--memcheck"] else run())
+    sys.exit(main(sys.argv[1:]))

@@ -8,6 +8,8 @@ with ``pytest tests/test_torch_cuda.py``. Imports no JAX.
 
 import functools
 import json
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -55,6 +57,7 @@ from tiled_cases import CASES as TILED_CASES, KINDS as TILED_KINDS, planes
 
 pytestmark = pytest.mark.cuda
 
+ROOT = Path(__file__).resolve().parents[1]
 GOLDEN = Path(__file__).parent / "data" / "golden"
 SPIN_CYCLES = 400_000_000  # torch.cuda._sleep: about 0.2 s at H100 clocks
 
@@ -1279,3 +1282,49 @@ def test_c_written_file_reads_on_the_card(cuda, tmp_path):
     np.testing.assert_array_equal(got, c_example.example_data())
     np.testing.assert_array_equal(got, cpu)
     assert counts["unpack_decode"] >= 1
+
+
+def _guard_child(args, timeout=300):
+    """A child process under the guard allocator (``deltarice_tpu_torch/
+    testing/guard.py``): its exit code, output, and the case it started and
+    did not finish with its error."""
+    from deltarice_tpu_torch.testing import guard
+
+    res = subprocess.run([sys.executable, *args], cwd=ROOT,
+                         capture_output=True, text=True, timeout=timeout)
+    out = res.stdout + res.stderr
+    return res.returncode, out, guard.read_child(out)
+
+
+@pytest.mark.parametrize("fault", [None, "past_end", "before_start"])
+def test_guard_positive_control(cuda, fault):
+    """The guard pages see a one-byte read outside a buffer: in a child,
+    the last byte of an ``end`` buffer and the first of a ``front`` buffer
+    read back what was written; one byte past the end, or one before the
+    start, kills the child with cudaErrorIllegalAddress in that case."""
+    from deltarice_tpu_torch.testing import guard
+
+    rc, out, (unfinished, error) = _guard_child(
+        ["-m", "deltarice_tpu_torch.testing.guard", "control"]
+        + (["--fault", fault] if fault else []))
+    assert "[guard] ok control.end_last" in out, out[-3000:]
+    assert "[guard] ok control.front_first" in out, out[-3000:]
+    if fault is None:
+        assert rc == 0 and unfinished is None, out[-3000:]
+    else:
+        assert rc != 0 and unfinished == f"control.{fault}", out[-3000:]
+        assert guard.illegal_address(error), error
+
+
+def test_guard_child_over_the_hostile_nab_planes(cuda):
+    """``chip_smoke.py``'s guard child on case b at Nab (B2 on the hostile
+    planes and on planes of width 1 and 2 and full rows, the generic
+    inverse on garbage decodes), end placement: no access outside a
+    buffer, every output equal to its reference."""
+    rc, out, (unfinished, error) = _guard_child(
+        [str(ROOT / "chip_smoke.py"), "--guard", "end", "--fill", "165",
+         "--cases", "b.nab"])
+    assert rc == 0, f"died in {unfinished} with {error}:\n{out[-3000:]}"
+    assert unfinished is None
+    assert any(ln.startswith("[guard] end: ") and " 0 faults" in ln
+               for ln in out.splitlines()), out[-3000:]
