@@ -186,6 +186,23 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    reference and hash alike in both children, each child must launch all
    13 wrappers and the inverse's three paths, and a child that dies is
    named by the case it left unfinished and its CUDA error;
+16. drives the streaming contract (:func:`phase_streaming`):
+   ``h5.write_dataset`` then ``h5.iter_chunks`` on an in-memory store, at
+   ``h5.DEFAULT_BATCH_CHUNKS`` chunks a window, of Nab 72000 x 7000 (36
+   windows), nEDM 8192 x 81920 and NOPTREX 8192 x 500000 (4 windows each),
+   in (32, L) chunks from an on-demand source (32 synthetic rows plus each
+   chunk's first row modulo 251); after ``MemTotal`` / ``MemAvailable``,
+   it prints a line a window with the wall time, ``VmRSS``, the stored
+   blob bytes, RSS less blobs and its peak, the caching host allocator's
+   pinned bytes and the device allocator's bytes (where the machine's
+   memory cannot hold the default window it halves the window and prints
+   the cut). Every chunk must read back exactly, the first and last
+   windows' blobs must equal native ``dr_compress``, the write must launch
+   B1 (and B3 for nEDM, B5 for NOPTREX) and the read B2, neither B4, the
+   write must hold fewer than two windows of source blocks at once, and
+   RSS less blobs, pinned reserved and device reserved bytes must each
+   grow by at most one window's raw bytes from the end of window 2 on;
+   each one's peak is printed as a multiple of a window;
    then the JSON line of the kernels and the JSON ``ok`` line last.
 
 Each phase prints its seconds. Before the last lines it checks that no
@@ -290,6 +307,14 @@ GUARD_KERNELS = tuple(n for names in GUARD_WRAPPERS.values() for n in names)
 IIR_PATHS = ("iir_decode.blocked", "iir_decode.one_walk", "iir_decode.serial")
 RAGGED_N = (1, 7, 9, 1025, 4099, 7001)
 GUARD_MADE_ROWS = 2  # rows of case b's planes of width 1, 2 and full rows
+# phase 16, the streaming contract: rows of each stream (in chunks of
+# CHUNK_ROWS rows from an on-demand source, at h5's default window), the
+# windows before the no-growth check's reference, and the windows of raw
+# bytes a stream may hold at once (what decides a cut of the window where the
+# machine's memory is short)
+STREAM_ROWS = {"nab": 72000, "nedm": 8192, "noptrex": 8192}
+STREAM_WARM = 2
+STREAM_HOLD = 10
 # why no single PyTorch call computes a kernel's function (library_ms null)
 NO_LIBRARY = {
     "pack_encode": "no PyTorch call Rice-codes or bit-packs",
@@ -3241,6 +3266,202 @@ def phase_guard() -> dict:
     return results
 
 
+def mb(n) -> str:
+    return "null" if n is None else f"{n / 1e6:.3f}"
+
+
+def window_line(name, what, index, count, s) -> None:
+    """One window's line of phase 16: wall time, RSS, blobs and RSS less
+    blobs (with its peak over the window), the host allocator's pinned
+    bytes and the device allocator's, in MB."""
+    p, d = s["pinned"], s["device"]
+    print(f"[16 stream {name}] {what} window {index}/{count}: "
+          f"{s['wall_s'] * 1e3:.1f} ms; rss {mb(s['rss'])}, blobs "
+          f"{mb(s['blobs'])}, rss-blobs {mb(s['rss_less_blobs'])} (peak "
+          f"{mb(s['peak_less_blobs'])}); pinned reserved "
+          f"{mb(p['reserved.current'])}/{mb(p['reserved.peak'])}, active "
+          f"{mb(p['active.current'])}/{mb(p['active.peak'])} "
+          f"(current/peak); device allocated {mb(d['allocated'])}, reserved "
+          f"{mb(d['reserved'])}, max allocated {mb(d['max_allocated'])} MB")
+
+
+def stream_growth(name, what, samples, window_bytes) -> str:
+    """Check that RSS less blobs, pinned reserved and device reserved grow
+    by at most one window's raw bytes from the end of window
+    ``STREAM_WARM`` to the end of any later window; print each one's
+    growth and its peak over the stream as a multiple of a window."""
+    metrics = {
+        "rss-blobs": (lambda s: s["rss_less_blobs"],
+                      lambda s: s["peak_less_blobs"]),
+        "pinned reserved": (lambda s: s["pinned"]["reserved.current"],
+                            lambda s: s["pinned"]["reserved.peak"]),
+        "device reserved": (lambda s: s["device"]["reserved"],
+                            lambda s: s["device"]["max_reserved"]),
+    }
+    start, warm, later = samples[0], samples[STREAM_WARM], samples[
+        STREAM_WARM:]
+    said = []
+    for label, (now, peak) in metrics.items():
+        check(all(now(s) is not None for s in samples),
+              f"{name} {what}: this torch does not report {label}")
+        grew = max(now(s) for s in later) - now(warm)
+        top = max(peak(s) for s in samples[1:]) - now(start)
+        said.append(f"{label} grew {mb(grew)} MB = {grew / window_bytes:.3f} "
+                    f"windows after window {STREAM_WARM}, peak "
+                    f"{mb(top)} MB = {top / window_bytes:.3f} windows above "
+                    f"the start")
+        check(grew <= window_bytes,
+              f"{name} {what}: {label} grew {grew} bytes from the end of "
+              f"window {STREAM_WARM} on, more than one window "
+              f"({window_bytes} bytes)")
+    return "; ".join(said)
+
+
+def stream_window(name: str, rows: int, available: int) -> int:
+    """Chunks a window of phase 16's ``name`` stream: the default, halved
+    while the stream would not fit in ``available`` bytes (its blobs at a
+    ratio of at most 0.4, and ``STREAM_HOLD`` windows of raw bytes)."""
+    from deltarice_tpu_torch import h5
+    from deltarice_tpu_torch.models import get_profile
+
+    chunk = CHUNK_ROWS * get_profile(name).waveform_length * 2
+    batch = h5.DEFAULT_BATCH_CHUNKS
+    while batch > 1 and (0.4 * rows // CHUNK_ROWS * chunk
+                         + STREAM_HOLD * batch * chunk > available):
+        batch //= 2
+    return batch
+
+
+def phase_streaming() -> dict:
+    """Phase 16: ``h5.write_dataset`` and ``h5.iter_chunks`` of each
+    ``STREAM_ROWS`` stream at the default window, in (32, L) chunks from an
+    on-demand source, on a store in memory; one line of memory and time a
+    window, the checks of :func:`stream_profile`. Pinned bytes are
+    :func:`~deltarice_tpu_torch.testing.streaming.pinned_stats`'. Returns
+    the launches of each counted run."""
+    from deltarice_tpu_torch import h5
+    from deltarice_tpu_torch.testing.streaming import meminfo
+
+    mem = meminfo()
+    print(f"[16 streaming] MemTotal {mb(mem['MemTotal'])} MB, MemAvailable "
+          f"{mb(mem['MemAvailable'])} MB; default window "
+          f"{h5.DEFAULT_BATCH_CHUNKS} chunks")
+    runs = {}
+    for name, rows in STREAM_ROWS.items():
+        t = time.perf_counter()
+        batch = stream_window(name, rows, meminfo()["MemAvailable"])
+        if batch != h5.DEFAULT_BATCH_CHUNKS:
+            print(f"[16 stream {name}] CUT: {batch} chunks a window, not "
+                  f"{h5.DEFAULT_BATCH_CHUNKS}: the default window does not "
+                  f"fit in MemAvailable")
+        runs.update(stream_profile(name, rows, batch))
+        print(f"[16 stream {name}] {time.perf_counter() - t:.1f} s")
+    return runs
+
+
+def stream_profile(name: str, rows: int, batch: int) -> dict:
+    """One stream of phase 16. Every chunk read back must equal its source
+    chunk; the blobs of the first and the last window must equal native
+    ``dr_compress``; the write must launch B1 (and the split merge's B3 for
+    nEDM, B5 for NOPTREX), the read B2, and neither B4; and
+    :func:`stream_growth` must hold for the write and for the read."""
+    from deltarice_tpu_torch import h5, native
+    from deltarice_tpu_torch.models import get_profile
+    from deltarice_tpu_torch.ops import _kernels
+    from deltarice_tpu_torch.testing.streaming import (
+        SyntheticRows, WatchedGroup, WindowMeter)
+
+    prof = get_profile(name)
+    cfg = prof.config
+    src = SyntheticRows(prof.synthetic(CHUNK_ROWS, seed=0), rows)
+    length = src.shape[1]
+    chunks = (CHUNK_ROWS, length)
+    chunk_bytes = CHUNK_ROWS * length * 2
+    window_bytes = batch * chunk_bytes
+    nchunks = -(-rows // CHUNK_ROWS)
+    count = -(-nchunks // batch)
+    raw = rows * length * 2
+    print(f"[16 stream {name}] {rows} x {length} = {raw} bytes in {nchunks} "
+          f"chunks of {chunks}, {count} windows of {batch} chunks = "
+          f"{window_bytes} bytes")
+    meter = WindowMeter("cuda")
+
+    def on_write(n, stored):
+        meter.tick(stored)
+        if n % batch == 0 or n == nchunks:
+            window_line(name, "write", -(-n // batch), count,
+                        meter.window(stored))
+
+    store = WatchedGroup(on_write)
+    runs, walls = {}, {}
+    _kernels.reset_launches()
+    meter.start()
+    t0 = time.perf_counter()
+    dset = h5.write_dataset(store, name, src, cfg, chunks,
+                            batch_chunks=batch, device="cuda")
+    torch.cuda.synchronize()
+    walls["write"] = time.perf_counter() - t0
+    runs[f"{name} write"] = dict(_kernels.launches)
+    written = meter.samples
+    check(len(written) == count + 1,
+          f"{name}: {len(written) - 1} write windows, want {count}")
+    check(max(src.live_at_request) < 2 * batch,
+          f"{name}: the write held {max(src.live_at_request)} source blocks "
+          f"at once, want fewer than two windows ({2 * batch})")
+    stored = dset.id.get_storage_size()
+    cd = cfg.to_cd_values()
+    for c in [*range(batch), *range((count - 1) * batch, nchunks)]:
+        r0 = c * CHUNK_ROWS
+        full = np.zeros(chunks, np.int16)
+        part = src.block(r0, min(r0 + CHUNK_ROWS, rows))
+        full[: part.shape[0]] = part
+        check(dset.id.read_direct_chunk((r0, 0)) == (
+            0, native.native_compress(full, cd)),
+              f"{name} stream chunk {c}: blob differs from native dr_compress")
+    _kernels.reset_launches()
+    meter.start(stored)
+    t0 = time.perf_counter()
+    seen = 0
+    for off, block in h5.iter_chunks(dset, batch_chunks=batch,
+                                     device="cuda"):
+        r0 = off[0]
+        part = src.block(r0, min(r0 + CHUNK_ROWS, rows))
+        check(off == (seen * CHUNK_ROWS, 0)
+              and np.array_equal(block[: part.shape[0]], part)
+              and not block[part.shape[0]:].any(),
+              f"{name} stream chunk at {off} read back differs")
+        seen += 1
+        meter.tick(stored)
+        if seen % batch == 0 or seen == nchunks:
+            window_line(name, "read", -(-seen // batch), count,
+                        meter.window(stored))
+    walls["read"] = time.perf_counter() - t0
+    runs[f"{name} read"] = dict(_kernels.launches)
+    check(seen == nchunks, f"{name}: read {seen} chunks, want {nchunks}")
+    merge = {"nedm": "concentrate_packed", "noptrex": "concentrate_wide"}
+    want = {"write": ["pack_encode"] + ([merge[name]] if name in merge
+                                        else []),
+            "read": ["unpack_decode"]}
+    for what, kernels in want.items():
+        n = runs[f"{name} {what}"]
+        for kernel in kernels:
+            check(n.get(kernel, 0) > 0,
+                  f"{name} stream {what} never launched {kernel}")
+        check(n.get("transpose2d", 0) == 0,
+              f"{name} stream {what} launched transpose2d")
+    for what, samples in (("write", written), ("read", meter.samples)):
+        said = stream_growth(name, what, samples, window_bytes)
+        print(f"[16 stream {name}] {what}: {walls[what] * 1e3:.1f} ms = "
+              f"{raw / walls[what] / 1e9:.4f} GB/s; {said}; launches "
+              f"{json.dumps(runs[f'{name} {what}'], sort_keys=True)}")
+    peaks = ("VmHWM, reset each window" if meter.hwm_reset else
+             "the largest VmRSS read after each chunk (no VmHWM, or no reset)")
+    print(f"[16 stream {name}] every chunk read back exact; the first and "
+          f"last windows' blobs equal native dr_compress; ratio "
+          f"{stored / raw:.6f}; RSS peaks: {peaks}")
+    return runs
+
+
 def run() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this run needs one", file=sys.stderr)
@@ -3309,6 +3530,9 @@ def run() -> int:
         t = time.perf_counter()
         phase_guard()
         print(f"[15 guard] {card}; {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        counted["streaming"] = phase_streaming()
+        print(f"[16 streaming] {card}; {time.perf_counter() - t:.1f} s")
         left = child_processes()
         check(not left, f"processes left running: {left}")
     except SmokeFailure as e:
@@ -3339,14 +3563,37 @@ def run() -> int:
     return 0
 
 
+def streaming_only() -> int:
+    """``chip_smoke.py --streaming``: phase 1's build, then phase 16 alone."""
+    if not (torch.cuda.is_available()
+            and (ROOT / "deltarice_tpu_torch" / "__init__.py").is_file()):
+        print("chip_smoke: --streaming needs a CUDA card and a checkout",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    split_switch(False)
+    try:
+        card = phase_device()
+        t = time.perf_counter()
+        phase_streaming()
+        print(f"[16 streaming] {card}; {time.perf_counter() - t:.1f} s")
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv: list[str]) -> int:
-    """No arguments: the smoke run. ``--memcheck``: phase 14's child under
+    """No arguments: the smoke run. ``--streaming``: phase 16 alone (after
+    the build). ``--memcheck``: phase 14's child under
     compute-sanitizer. ``--guard end|front --fill BYTE [--cases PREFIX]``:
     one placement of phase 15 (the cases whose names start with PREFIX)."""
     if not argv:
         return run()
     if argv == ["--memcheck"]:
         return memcheck_child()
+    if argv == ["--streaming"]:
+        return streaming_only()
     import argparse
 
     ap = argparse.ArgumentParser(prog="chip_smoke.py")

@@ -85,8 +85,9 @@ def create_dataset(group, name, shape, cfg: RiceConfig | None = None,
     )
 
 
-#: chunks per device batch in the streaming windows: bounds host memory at
-#: about two windows of chunks while keeping device batches large
+#: chunks per device batch in the streaming windows: host memory stays flat
+#: over a stream, at a few windows of chunks (two windows of source blocks,
+#: a padded copy, pinned staging), while device batches stay large
 DEFAULT_BATCH_CHUNKS = 64
 
 
