@@ -1,0 +1,168 @@
+"""The plain Delta-Rice codec that decides ``correct``: plain torch on any
+device, written from the format alone. It imports torch and numpy only,
+never the program under test.
+
+Format (the reference filter's, HDF5 filter 32025):
+
+* delta filter: ``d[n] = x[n] - x[n-1]`` with ``x[-1] = 0``, wrapped to int16;
+* zigzag: ``u = 2d`` for ``d >= 0``, ``u = -2d - 1`` for ``d < 0``;
+* Rice code with ``M = 2**k``: ``q = u >> k``; below 8, ``q`` zeros, a one
+  and the ``k`` low bits of ``u``; from 8 on, the escape: 8 zeros, a one
+  and ``u`` in 16 bits (25 bits);
+* codewords laid end to end MSB-first in uint32 words, one stream a
+  segment, its last word zero-filled at the low end;
+* a chunk's frame: ``u32 total`` then ``u32 nwords, words`` a segment.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+ESCAPE_Q = 8
+ESCAPE_LEN = ESCAPE_Q + 1 + 16
+
+
+def rice_k(m: int) -> int:
+    if m <= 0 or m & (m - 1) or m > 1 << 15:
+        raise ValueError(f"M must be a power of two up to 2**15, got {m}")
+    return m.bit_length() - 1
+
+
+def max_words(length: int, m: int) -> int:
+    """Words of the longest stream ``length`` samples can make: every
+    codeword at its longest (an escape, or below 8 the longest plain one)."""
+    k = rice_k(m)
+    qmax = min(ESCAPE_Q - 1, 0xFFFF >> k)
+    return (length * max(qmax + 1 + k, ESCAPE_LEN if k < 13 else 0) + 31) // 32
+
+
+def codewords(x: torch.Tensor, nvalid: torch.Tensor, m: int):
+    """Per-sample (bit length, right-aligned bits), both int64, of the
+    delta-filtered rows of ``x`` (int16, (rows, L)); samples at or past a
+    row's ``nvalid`` get length 0."""
+    k = rice_k(m)
+    xi = x.to(torch.int64)
+    d = xi.clone()
+    d[:, 1:] -= xi[:, :-1]
+    d = ((d + 0x8000) & 0xFFFF) - 0x8000
+    u = torch.where(d >= 0, 2 * d, -2 * d - 1)
+    q = u >> k
+    esc = q >= ESCAPE_Q
+    length = torch.where(esc, ESCAPE_LEN, q + 1 + k)
+    bits = torch.where(esc, (1 << 16) | u, (1 << k) | (u & ((1 << k) - 1)))
+    pos = torch.arange(x.shape[1], device=x.device)
+    length = torch.where(pos[None, :] < nvalid.to(x.device, torch.int64)[:, None],
+                         length, 0)
+    return length, bits
+
+
+def stream_words(x: torch.Tensor, nvalid: torch.Tensor, m: int):
+    """Exact word count of each row's stream: (rows,) int64."""
+    length, _ = codewords(x, nvalid, m)
+    return (length.sum(dim=1) + 31) // 32
+
+
+def encode(x: torch.Tensor, nvalid: torch.Tensor, m: int, width: int):
+    """Encode each row into ``width`` words: (words (rows, width) int32
+    holding the uint32 bit patterns, zero past each stream; nwords (rows,)
+    int64, exact even where a stream is wider than ``width``)."""
+    length, bits = codewords(x, nvalid, m)
+    end = torch.cumsum(length, dim=1)
+    start = end - length
+    nwords = (end[:, -1] + 31) // 32 if x.shape[1] else torch.zeros_like(end[:, 0])
+    first = start >> 5
+    spill = (start & 31) + length - 32  # > 0: the codeword runs into the next word
+    head = torch.where(spill > 0, bits >> spill.clamp(min=0),
+                       bits << (-spill).clamp(min=0))
+    tail = torch.where(spill > 0, (bits << (32 - spill).clamp(min=0)) & 0xFFFFFFFF, 0)
+    head = torch.where(length > 0, head, 0)
+    # codewords share no bit, so adding their parts is OR-ing them; one
+    # extra column takes whatever lies past ``width``
+    out = torch.zeros(x.shape[0], width + 1, dtype=torch.int64, device=x.device)
+    out.scatter_add_(1, first.clamp(max=width), head)
+    out.scatter_add_(1, (first + 1).clamp(max=width), tail)
+    out = out[:, :width]
+    out = torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
+    return out, nwords
+
+
+def encode_blocks(x: torch.Tensor, nvalid: torch.Tensor, m: int, width: int,
+                  samples_per_block: int = 1 << 24):
+    """:func:`encode` over blocks of rows, so that a batch of any size fits
+    beside the program's buffers."""
+    rows = max(1, samples_per_block // max(1, x.shape[1]))
+    words = torch.empty(x.shape[0], width, dtype=torch.int32, device=x.device)
+    nwords = torch.empty(x.shape[0], dtype=torch.int64, device=x.device)
+    for r in range(0, x.shape[0], rows):
+        words[r:r + rows], nwords[r:r + rows] = encode(
+            x[r:r + rows], nvalid[r:r + rows], m, width)
+    return words, nwords
+
+
+def counts_blocks(x: torch.Tensor, nvalid: torch.Tensor, m: int,
+                  samples_per_block: int = 1 << 24) -> torch.Tensor:
+    """:func:`stream_words` over blocks of rows."""
+    rows = max(1, samples_per_block // max(1, x.shape[1]))
+    return torch.cat([stream_words(x[r:r + rows], nvalid[r:r + rows], m)
+                      for r in range(0, x.shape[0], rows)])
+
+
+def decode(words: np.ndarray, n_samples: int, m: int) -> np.ndarray:
+    """Serial decode of each row's stream (uint32 (rows, W)) into
+    ``n_samples`` int16 samples: a bit cursor walked one codeword at a
+    time, the rows in step. For small inputs (the tests)."""
+    k = rice_k(m)
+    w = np.asarray(words, dtype=np.uint64)
+    rows = w.shape[0]
+    # a 64-bit window from the cursor's word on; one zero word past the end
+    w = np.concatenate([w, np.zeros((rows, 2), np.uint64)], axis=1)
+    r = np.arange(rows)
+    bit = np.zeros(rows, np.int64)
+    prev = np.zeros(rows, np.int64)
+    out = np.empty((rows, n_samples), np.int16)
+    for i in range(n_samples):
+        wi = bit >> 5
+        win = ((w[r, wi] << np.uint64(32)) | w[r, wi + 1]) << (bit & 31).astype(np.uint64)
+        win = (win >> np.uint64(32)) & np.uint64(0xFFFFFFFF)  # next 32 bits
+        q = _leading_zeros(win)
+        esc = q >= ESCAPE_Q
+        u_esc = (win >> np.uint64(32 - ESCAPE_LEN)) & np.uint64(0xFFFF)
+        shift = np.maximum(31 - k - q, 0).astype(np.uint64)
+        u_rice = (q << k) | ((win >> shift) & np.uint64((1 << k) - 1)).astype(np.int64)
+        u = np.where(esc, u_esc.astype(np.int64), u_rice)
+        d = np.where(u & 1, -((u + 1) >> 1), u >> 1)
+        prev = ((prev + d + 0x8000) & 0xFFFF) - 0x8000
+        out[:, i] = prev
+        bit += np.where(esc, ESCAPE_LEN, q + 1 + k)
+    return out
+
+
+def _leading_zeros(win: np.ndarray) -> np.ndarray:
+    """Leading zeros of 32-bit values, capped at ``ESCAPE_Q``."""
+    q = np.full(win.shape, ESCAPE_Q, np.int64)
+    for z in range(ESCAPE_Q - 1, -1, -1):
+        q = np.where((win >> np.uint64(31 - z)) & np.uint64(1) == 1, z, q)
+    return q
+
+
+def frame(chunk: np.ndarray, m: int, waveform_length: int) -> bytes:
+    """The framed stream of one chunk (1-D int16), as the reference filter
+    writes it."""
+    total = chunk.shape[0]
+    length = total if waveform_length == -1 else waveform_length
+    nseg = -(-total // length) if total else 0
+    rows = np.zeros((nseg, length), np.int16)
+    rows.reshape(-1)[:total] = chunk
+    nvalid = np.full(nseg, length, np.int64)
+    if nseg and total % length:
+        nvalid[-1] = total % length
+    x = torch.from_numpy(rows)
+    nv = torch.from_numpy(nvalid)
+    width = int(stream_words(x, nv, m).max()) if nseg else 0
+    words, nwords = encode(x, nv, m, width)
+    out = [np.array([total], "<u4")]
+    for s in range(nseg):
+        out.append(np.array([int(nwords[s])], "<u4"))
+        out.append(words[s, : int(nwords[s])].numpy().view(np.uint32).astype("<u4"))
+    return b"".join(a.tobytes() for a in out)
