@@ -45,6 +45,7 @@ import os
 import numpy as np
 import torch
 
+from . import tracing
 from .config import RiceConfig
 from .ops.concentrate import concentrate
 from .ops.pack_cuda import pack_encode
@@ -87,15 +88,21 @@ def encode_segments_bits(x, nvalid, cfg: RiceConfig, max_words: int,
     ``prefiltered`` takes ``x`` as already pre-filtered values and skips the
     filter (the generic-FIR split filters over a halo before splitting).
     Returns (words, nwords, nbits) on ``device``."""
-    x = _on(x, device, torch.int16)
-    nv = _on(nvalid, device, torch.int32)
-    p0 = None if prev0 is None else _on(prev0, device, torch.int32)
-    diff = cfg.is_delta and not prefiltered
-    if not cfg.is_delta and p0 is not None:
-        raise ValueError("prev0 is only supported for the delta filter")
-    if not cfg.is_delta and not prefiltered:
-        x = prefilter_encode(x, cfg.filt)
-    return pack_encode(x, nv, p0, cfg.k, diff, max_words)
+    with tracing.span("encode_segments", words=max_words) as sp:
+        with tracing.span("stage"):
+            x = _on(x, device, torch.int16)
+            nv = _on(nvalid, device, torch.int32)
+            p0 = None if prev0 is None else _on(prev0, device, torch.int32)
+        if sp is not None:
+            sp.rows, sp.length = x.shape
+        tracing.counters["rows_encoded"] += x.shape[0]
+        diff = cfg.is_delta and not prefiltered
+        if not cfg.is_delta and p0 is not None:
+            raise ValueError("prev0 is only supported for the delta filter")
+        if not cfg.is_delta and not prefiltered:
+            with tracing.span("prefilter"):
+                x = prefilter_encode(x, cfg.filt)
+        return pack_encode(x, nv, p0, cfg.k, diff, max_words)
 
 
 def _split_decode_enabled() -> bool:
@@ -112,10 +119,12 @@ def _decode_device_split(words: torch.Tensor, counts, n_samples: int,
     per-segment bad flags), both on the device. Flagged segments re-decode
     exactly through :func:`_redecode_bad_rows`. The generic-FIR inverse
     runs after the merge, as in :func:`decode_segments`."""
-    out, bad = unpack_decode_split(words, counts, n_samples, cfg.k,
-                                   cfg.is_delta, parts, nvalid)
+    with tracing.span("split_decode"):
+        out, bad = unpack_decode_split(words, counts, n_samples, cfg.k,
+                                       cfg.is_delta, parts, nvalid)
     if not cfg.is_delta:
-        out = prefilter_decode(out, cfg.filt)
+        with tracing.span("prefilter_inverse"):
+            out = prefilter_decode(out, cfg.filt)
     return out, bad
 
 
@@ -126,10 +135,12 @@ def _redecode_bad_rows(out_np: np.ndarray, bad, words_np: np.ndarray,
     idx = np.nonzero(np.asarray(bad))[0]
     if idx.size == 0:
         return out_np
-    if not out_np.flags.writeable:
-        out_np = out_np.copy()
-    fixed = decode_segments(words_np[idx], n_samples, cfg, device)
-    out_np[idx] = fixed.cpu().numpy()
+    tracing.counters["rows_redecoded"] += idx.size
+    with tracing.span("redecode", rows=idx.size):
+        if not out_np.flags.writeable:
+            out_np = out_np.copy()
+        fixed = decode_segments(words_np[idx], n_samples, cfg, device)
+        out_np[idx] = fixed.cpu().numpy()
     return out_np
 
 
@@ -146,13 +157,16 @@ def decode_segments(words, n_samples: int, cfg: RiceConfig,
     Returns (num_segments, n_samples) int16 on ``device`` (the tail of short
     segments is garbage; callers slice by true counts).
     """
-    w, out, bad = _decode_dispatch(words, n_samples, cfg, device, counts,
-                                   nvalid)
-    if bad is not None and bool(bad.any()):
-        out = torch.from_numpy(_redecode_bad_rows(
-            out.cpu().numpy(), bad.cpu().numpy(), _host_words(w), n_samples,
-            cfg, device)).to(device)
-    return out
+    with tracing.span("decode_segments", length=n_samples) as sp:
+        w, out, bad = _decode_dispatch(words, n_samples, cfg, device, counts,
+                                       nvalid)
+        if sp is not None:
+            sp.rows, sp.words = w.shape
+        if bad is not None and bool(bad.any()):
+            out = torch.from_numpy(_redecode_bad_rows(
+                out.cpu().numpy(), bad.cpu().numpy(), _host_words(w),
+                n_samples, cfg, device)).to(device)
+        return out
 
 
 def _decode_dispatch(words, n_samples: int, cfg: RiceConfig, device,
@@ -160,9 +174,11 @@ def _decode_dispatch(words, n_samples: int, cfg: RiceConfig, device,
     """Queue the decode of :func:`decode_segments` without waiting for the
     card: (words on ``device``, samples, the split decode's per-segment
     bad flags or None)."""
-    if isinstance(words, np.ndarray):
-        words = np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
-    w = _on(words, device, torch.int32)
+    with tracing.span("stage"):
+        if isinstance(words, np.ndarray):
+            words = np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
+        w = _on(words, device, torch.int32)
+    tracing.counters["rows_decoded"] += w.shape[0]
     parts = 1
     if counts is not None and _split_decode_enabled():
         parts = decode_split_parts(w.shape[0],
@@ -173,7 +189,8 @@ def _decode_dispatch(words, n_samples: int, cfg: RiceConfig, device,
                                          nvalid))
     out = unpack_decode(w, n_samples, cfg.k, cfg.is_delta)
     if not cfg.is_delta:
-        out = prefilter_decode(out, cfg.filt)
+        with tracing.span("prefilter_inverse"):
+            out = prefilter_decode(out, cfg.filt)
     return w, out, None
 
 
@@ -280,10 +297,13 @@ def _reencode_bad_rows(words_np: np.ndarray, x: np.ndarray,
     idx = np.nonzero(np.asarray(bad))[0]
     if idx.size == 0:
         return words_np
-    wfix, _nw = encode_segments(x[idx], nvalid[idx], cfg, max_words, device)
-    if not words_np.flags.writeable:
-        words_np = words_np.copy()
-    words_np[idx] = _host_words(wfix[:, : words_np.shape[1]])
+    tracing.counters["rows_reencoded"] += idx.size
+    with tracing.span("reencode", rows=idx.size):
+        wfix, _nw = encode_segments(x[idx], nvalid[idx], cfg, max_words,
+                                    device)
+        if not words_np.flags.writeable:
+            words_np = words_np.copy()
+        words_np[idx] = _host_words(wfix[:, : words_np.shape[1]])
     return words_np
 
 
@@ -363,13 +383,17 @@ def _encode_split_rows(padded2d: np.ndarray, nvalid_rows: np.ndarray,
     preceding raw samples — both reproduce the serial filter outputs
     exactly, so the merged stream is byte-identical."""
     if cfg.is_delta:
-        xs, nv, p0, ls = _split_layout(padded2d, nvalid_rows, parts)
+        with tracing.span("split_layout"):
+            xs, nv, p0, ls = _split_layout(padded2d, nvalid_rows, parts)
         w, nw, nb = encode_segments_bits(xs, nv, cfg, cfg.max_words(ls),
                                          prev0=p0, device=device)
     else:
         halo = len(cfg.filt) - 1
-        xs, nv, _p0, ls = _split_layout(padded2d, nvalid_rows, parts, halo)
-        d = prefilter_encode(_on(xs, device, torch.int16), cfg.filt)
+        with tracing.span("split_layout"):
+            xs, nv, _p0, ls = _split_layout(padded2d, nvalid_rows, parts,
+                                            halo)
+        with tracing.span("prefilter"):
+            d = prefilter_encode(_on(xs, device, torch.int16), cfg.filt)
         w, nw, nb = encode_segments_bits(d[:, halo:], nv, cfg,
                                          cfg.max_words(ls), prefiltered=True,
                                          device=device)
@@ -566,29 +590,36 @@ def compress_batch_dispatch(chunks, cfg: RiceConfig = RiceConfig(),
     with the next window's encode.
     ``collect(dispatch(x)) == compress_batch(x)`` byte for byte.
     """
-    arrs = [as_int16(c).ravel() for c in chunks]
-    if not arrs:
-        return (arrs, 0, None, None, device, None, 1, None)
-    total = arrs[0].size
-    if any(a.size != total for a in arrs):
-        raise ValueError("compress_batch requires equal-sized chunks")
-    if total == 0:  # header-only streams, matching the native C codec
-        return (arrs, 0, None, None, device, None, 1, None)
-    x2, nv, length = _padded_rows(arrs, total, cfg)
-    parts = _split_parts(_segment_layout(total, cfg)[0], length, cfg)
-    if parts > 1:  # long segments: sub-block split, merged in collect
-        words, nwords, nbits, _ls = _encode_split_rows(x2, nv, cfg, parts,
-                                                       device)
-        if _is_cuda(device):  # the merge needs host bit counts; words stay
-            nwords, nbits = _pinned_copy(nwords), _pinned_copy(nbits)
-        return (arrs, total, words, nwords, device, nbits, parts,
+    with tracing.span("compress_batch_dispatch") as sp:
+        arrs = [as_int16(c).ravel() for c in chunks]
+        if sp is not None:
+            sp.chunks = len(arrs)
+        if not arrs:
+            return (arrs, 0, None, None, device, None, 1, None)
+        total = arrs[0].size
+        if any(a.size != total for a in arrs):
+            raise ValueError("compress_batch requires equal-sized chunks")
+        if total == 0:  # header-only streams, matching the native C codec
+            return (arrs, 0, None, None, device, None, 1, None)
+        with tracing.span("pad_rows"):
+            x2, nv, length = _padded_rows(arrs, total, cfg)
+        parts = _split_parts(_segment_layout(total, cfg)[0], length, cfg)
+        if parts > 1:  # long segments: sub-block split, merged in collect
+            words, nwords, nbits, _ls = _encode_split_rows(x2, nv, cfg, parts,
+                                                           device)
+            if _is_cuda(device):  # the merge needs host bit counts; words stay
+                with tracing.span("pinned_copy"):
+                    nwords, nbits = _pinned_copy(nwords), _pinned_copy(nbits)
+            return (arrs, total, words, nwords, device, nbits, parts,
+                    _window_ready(device))
+        with tracing.span("words_hint"):
+            cap = _words_hint(x2, cfg, length)
+        words, nwords = encode_segments(x2, nv, cfg, cap, device)
+        if _is_cuda(device):  # the whole capped width: max(nwords) is unknown
+            with tracing.span("pinned_copy"):
+                words, nwords = _pinned_copy(words), _pinned_copy(nwords)
+        return (arrs, total, words, nwords, device, None, 1,
                 _window_ready(device))
-    cap = _words_hint(x2, cfg, length)
-    words, nwords = encode_segments(x2, nv, cfg, cap, device)
-    if _is_cuda(device):  # the whole capped width: max(nwords) is unknown
-        words, nwords = _pinned_copy(words), _pinned_copy(nwords)
-    return (arrs, total, words, nwords, device, None, 1,
-            _window_ready(device))
 
 
 def _padded_rows(arrs, total: int, cfg: RiceConfig):
@@ -615,11 +646,13 @@ def compress_batch_collect(handle, cfg: RiceConfig = RiceConfig(),
         return []
     if total == 0:
         return [np.zeros(1, dtype="<u4").tobytes() for _ in arrs]
-    if ready is not None:
-        ready.synchronize()
-    with _collect_stream(device):
-        return _frame_collected(arrs, total, words, nwords, device, nbits,
-                                parts, cfg, verify, retries)
+    with tracing.span("compress_batch_collect", chunks=len(arrs)):
+        if ready is not None:
+            with tracing.span("wait"):
+                ready.synchronize()
+        with _collect_stream(device):
+            return _frame_collected(arrs, total, words, nwords, device,
+                                    nbits, parts, cfg, verify, retries)
 
 
 def _frame_collected(arrs, total, words, nwords, device, nbits, parts, cfg,
@@ -630,20 +663,21 @@ def _frame_collected(arrs, total, words, nwords, device, nbits, parts, cfg,
     nw = nwords.cpu().numpy()
     w = max(int(nw.max(initial=0)), 1)
     if parts > 1:
-        nb2 = nbits.cpu().numpy().reshape(nchunks * nseg, parts)
-        if words.device.type == "cpu":
-            wn, nw = merge_substreams(
-                _host_words(words[:, :w]).reshape(nchunks * nseg, parts, w),
-                nb2)
-        else:
-            words.record_stream(torch.cuda.current_stream())
-            res = merge_substreams_device(words, nb2, parts)
-            if res is None:
-                # _split_layout makes every sub-block before a segment's
-                # last non-empty one >= _SPLIT_MIN_SUB samples, so >= 32 bits
-                raise RuntimeError("split encode made a middle sub-stream "
-                                   "shorter than one word")
-            wn, nw = res
+        with tracing.span("merge", rows=nchunks * nseg):
+            nb2 = nbits.cpu().numpy().reshape(nchunks * nseg, parts)
+            if words.device.type == "cpu":
+                wn, nw = merge_substreams(_host_words(words[:, :w]).reshape(
+                    nchunks * nseg, parts, w), nb2)
+            else:
+                words.record_stream(torch.cuda.current_stream())
+                res = merge_substreams_device(words, nb2, parts)
+                if res is None:
+                    # _split_layout makes every sub-block before a segment's
+                    # last non-empty one >= _SPLIT_MIN_SUB samples, so >= 32
+                    # bits
+                    raise RuntimeError("split encode made a middle "
+                                       "sub-stream shorter than one word")
+                wn, nw = res
     else:
         cap = words.shape[1]
         wn = _host_words(words[:, : min(w, cap)])
@@ -656,9 +690,11 @@ def _frame_collected(arrs, total, words, nwords, device, nbits, parts, cfg,
                                     cfg.max_words(length), device)
     nw = nw.reshape(nchunks, nseg)
     wn = wn.reshape(nchunks, nseg, -1)
-    streams = [frame_stream(total, wn[c], nw[c]) for c in range(nchunks)]
+    with tracing.span("frame", chunks=nchunks):
+        streams = [frame_stream(total, wn[c], nw[c]) for c in range(nchunks)]
     if verify:
-        streams = _verify_retry(arrs, streams, cfg, retries, device)
+        with tracing.span("verify", chunks=nchunks):
+            streams = _verify_retry(arrs, streams, cfg, retries, device)
     return streams
 
 
@@ -694,6 +730,7 @@ def _verify_retry(arrs, streams, cfg: RiceConfig, retries: int,
     for _ in range(max(retries, 0)):
         if not bad:
             break
+        tracing.counters["verify_retries"] += len(bad)
         for i in bad:
             streams[i] = compress(arrs[i], cfg, device)
         bad = bad_indices(bad, [streams[i] for i in bad])
@@ -740,46 +777,53 @@ def decompress_batch_dispatch(streams, cfg: RiceConfig = RiceConfig(),
     handle with an event recorded after them for
     :func:`decompress_batch_collect`."""
     streams = list(streams)
-    if not streams:
-        return (0, 0, None, [])
-    bufs = [np.frombuffer(memoryview(s), dtype="<u4") for s in streams]
-    if any(b.size == 0 for b in bufs):
-        raise ValueError("truncated Delta-Rice stream")
-    total = int(bufs[0][0])
-    if any(int(b[0]) != total for b in bufs):
-        raise ValueError("decompress_batch requires equal-sized chunks")
-    if total == 0:
-        return (len(bufs), 0, None, [])
-    cuda = _is_cuda(device)
-    nseg, length, nvalid = _segment_layout(total, cfg)
-    by_bucket: dict[int, list[int]] = {}
-    per_chunk = []
-    for i, buf in enumerate(bufs):
-        counts, starts = walk_headers(buf, nseg)
-        per_chunk.append((buf, counts, starts))
-        bucket = -(-(int(counts.max(initial=0)) + 1) // _WORD_BUCKET)
-        by_bucket.setdefault(bucket * _WORD_BUCKET, []).append(i)
-    pending = []
-    for bucket, idxs in by_bucket.items():
-        shape = (len(idxs) * nseg, bucket)
-        staged = (torch.zeros(shape, dtype=torch.int32, pin_memory=True)
-                  if cuda else None)
-        words2 = (np.zeros(shape, dtype=np.uint32) if staged is None
-                  else staged.numpy().view(np.uint32))
-        for j, i in enumerate(idxs):
-            buf, counts, starts = per_chunk[i]
-            gather_segments(buf, counts, starts, bucket,
-                            out=words2[j * nseg : (j + 1) * nseg])
-        _w, dec, bad = _decode_dispatch(
-            words2 if staged is None else staged, length, cfg, device,
-            np.concatenate([per_chunk[i][1] for i in idxs]),
-            np.tile(nvalid, len(idxs)))
-        if cuda:  # samples and flags land in pinned memory behind the kernels
-            dec = _pinned_copy(dec)
-            bad = None if bad is None else _pinned_copy(bad)
-        pending.append((idxs, dec, bad, words2))
-    return (len(bufs), total, (length, cfg, device, _window_ready(device)),
-            pending)
+    with tracing.span("decompress_batch_dispatch", chunks=len(streams)):
+        if not streams:
+            return (0, 0, None, [])
+        bufs = [np.frombuffer(memoryview(s), dtype="<u4") for s in streams]
+        if any(b.size == 0 for b in bufs):
+            raise ValueError("truncated Delta-Rice stream")
+        total = int(bufs[0][0])
+        if any(int(b[0]) != total for b in bufs):
+            raise ValueError("decompress_batch requires equal-sized chunks")
+        if total == 0:
+            return (len(bufs), 0, None, [])
+        cuda = _is_cuda(device)
+        nseg, length, nvalid = _segment_layout(total, cfg)
+        by_bucket: dict[int, list[int]] = {}
+        per_chunk = []
+        with tracing.span("walk_headers", chunks=len(bufs)):
+            for i, buf in enumerate(bufs):
+                counts, starts = walk_headers(buf, nseg)
+                per_chunk.append((buf, counts, starts))
+                bucket = -(-(int(counts.max(initial=0)) + 1) // _WORD_BUCKET)
+                by_bucket.setdefault(bucket * _WORD_BUCKET, []).append(i)
+        pending = []
+        for bucket, idxs in by_bucket.items():
+            shape = (len(idxs) * nseg, bucket)
+            with tracing.span("gather", rows=shape[0], words=bucket):
+                staged = (torch.zeros(shape, dtype=torch.int32,
+                                      pin_memory=True) if cuda else None)
+                words2 = (np.zeros(shape, dtype=np.uint32) if staged is None
+                          else staged.numpy().view(np.uint32))
+                for j, i in enumerate(idxs):
+                    buf, counts, starts = per_chunk[i]
+                    gather_segments(buf, counts, starts, bucket,
+                                    out=words2[j * nseg : (j + 1) * nseg])
+            with tracing.span("decode_bucket", rows=shape[0], length=length,
+                              words=bucket):
+                _w, dec, bad = _decode_dispatch(
+                    words2 if staged is None else staged, length, cfg, device,
+                    np.concatenate([per_chunk[i][1] for i in idxs]),
+                    np.tile(nvalid, len(idxs)))
+            if cuda:  # samples and flags land in pinned memory behind the
+                # kernels
+                with tracing.span("pinned_copy"):
+                    dec = _pinned_copy(dec)
+                    bad = None if bad is None else _pinned_copy(bad)
+            pending.append((idxs, dec, bad, words2))
+        return (len(bufs), total, (length, cfg, device, _window_ready(device)),
+                pending)
 
 
 def decompress_batch_collect(handle) -> list[np.ndarray]:
@@ -793,19 +837,22 @@ def decompress_batch_collect(handle) -> list[np.ndarray]:
     if total == 0:
         return [np.zeros(0, dtype=np.int16) for _ in range(n)]
     length, cfg, device, ready = meta
-    if ready is not None:
-        ready.synchronize()
-    out: list[np.ndarray | None] = [None] * n
-    with _collect_stream(device):
-        for idxs, dec, bad, words2 in pending:
-            dec_np = dec.cpu().numpy()
-            if bad is not None:
-                dec_np = _redecode_bad_rows(dec_np, bad.cpu().numpy(),
-                                            words2, length, cfg, device)
-            dec_np = dec_np.reshape(len(idxs), -1)
-            for j, i in enumerate(idxs):
-                out[i] = dec_np[j, :total].copy()
-    return out
+    with tracing.span("decompress_batch_collect", chunks=n):
+        if ready is not None:
+            with tracing.span("wait"):
+                ready.synchronize()
+        out: list[np.ndarray | None] = [None] * n
+        with _collect_stream(device):
+            for idxs, dec, bad, words2 in pending:
+                dec_np = dec.cpu().numpy()
+                if bad is not None:
+                    dec_np = _redecode_bad_rows(dec_np, bad.cpu().numpy(),
+                                                words2, length, cfg, device)
+                with tracing.span("copy_out", chunks=len(idxs)):
+                    dec_np = dec_np.reshape(len(idxs), -1)
+                    for j, i in enumerate(idxs):
+                        out[i] = dec_np[j, :total].copy()
+        return out
 
 
 def as_int16(data) -> np.ndarray:

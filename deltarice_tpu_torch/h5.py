@@ -27,7 +27,7 @@ import itertools
 import numpy as np
 import torch
 
-from . import codec
+from . import codec, tracing
 from .config import H5FILTER, RiceConfig
 
 
@@ -126,24 +126,28 @@ def write_dataset(group, name, data, cfg: RiceConfig | None = None,
 
     prev = None
     for window in _windows(grid, max(1, batch_chunks)):
-        offsets, blocks = [], []
-        for _idx, off in window:
-            sel = tuple(slice(o, min(o + c, s))
-                        for o, c, s in zip(off, chunk_shape, shape))
-            block = np.asarray(data[sel])
-            if block.shape != chunk_shape:  # edge chunk: zero-pad full size
-                full = np.zeros(chunk_shape, dtype=data.dtype)
-                full[tuple(slice(0, b) for b in block.shape)] = block
-                block = full
-            offsets.append(off)
-            blocks.append(block)
-        # queue window i before collecting window i-1
-        handle = codec.compress_batch_dispatch(blocks, cfg, device)
-        if prev is not None:
-            flush(prev)
-        prev = (offsets, handle)
+        # one span a window: its blocks read and queued, then window i-1
+        # collected and written
+        with tracing.span("h5.write_window", chunks=len(window)):
+            offsets, blocks = [], []
+            for _idx, off in window:
+                sel = tuple(slice(o, min(o + c, s))
+                            for o, c, s in zip(off, chunk_shape, shape))
+                block = np.asarray(data[sel])
+                if block.shape != chunk_shape:  # edge chunk: zero-pad
+                    full = np.zeros(chunk_shape, dtype=data.dtype)
+                    full[tuple(slice(0, b) for b in block.shape)] = block
+                    block = full
+                offsets.append(off)
+                blocks.append(block)
+            # queue window i before collecting window i-1
+            handle = codec.compress_batch_dispatch(blocks, cfg, device)
+            if prev is not None:
+                flush(prev)
+            prev = (offsets, handle)
     if prev is not None:
-        flush(prev)
+        with tracing.span("h5.write_window", chunks=0):
+            flush(prev)
     return dset
 
 
@@ -163,10 +167,12 @@ def iter_chunks(dset, cfg: RiceConfig | None = None,
     filter_bit = _deltarice_filter_bit(dset)
     grid = list(_chunk_grid(shape, chunk_shape))
 
-    def emit(prev):
+    def collect(prev):
         offsets, handle, raw = prev
-        decoded = codec.decompress_batch_collect(handle)
-        for off, flat in list(zip(offsets, decoded)) + raw:
+        return list(zip(offsets, codec.decompress_batch_collect(handle))) + raw
+
+    def emit(done):
+        for off, flat in done:
             if flat.size != nsamp16:
                 raise ValueError(f"chunk at {off}: expected {nsamp16} "
                                  f"samples, got {flat.size}")
@@ -174,23 +180,28 @@ def iter_chunks(dset, cfg: RiceConfig | None = None,
 
     prev = None
     for window in _windows(grid, max(1, batch_chunks)):
-        offsets, blobs, raw = [], [], []
-        for _idx, off in window:
-            mask, blob = dset.id.read_direct_chunk(off)
-            if mask & filter_bit:
-                # filter marked optional and skipped at write time: the
-                # stored bytes are the samples, not a compressed stream
-                raw.append((off, np.frombuffer(blob, dtype=np.int16)))
-            else:
-                offsets.append(off)
-                blobs.append(blob)
-        # queue window i before collecting window i-1
-        handle = codec.decompress_batch_dispatch(blobs, cfg, device)
-        if prev is not None:
-            yield from emit(prev)
+        # one span a window: its blobs read and queued, then window i-1
+        # collected (the caller's work on its chunks lies outside)
+        with tracing.span("h5.read_window", chunks=len(window)):
+            offsets, blobs, raw = [], [], []
+            for _idx, off in window:
+                mask, blob = dset.id.read_direct_chunk(off)
+                if mask & filter_bit:
+                    # filter marked optional and skipped at write time: the
+                    # stored bytes are the samples, not a compressed stream
+                    raw.append((off, np.frombuffer(blob, dtype=np.int16)))
+                else:
+                    offsets.append(off)
+                    blobs.append(blob)
+            # queue window i before collecting window i-1
+            handle = codec.decompress_batch_dispatch(blobs, cfg, device)
+            done = [] if prev is None else collect(prev)
+        yield from emit(done)
         prev = (offsets, handle, raw)
     if prev is not None:
-        yield from emit(prev)
+        with tracing.span("h5.read_window", chunks=0):
+            done = collect(prev)
+        yield from emit(done)
 
 
 def read_dataset(dset, cfg: RiceConfig | None = None,

@@ -31,6 +31,8 @@ from pathlib import Path
 
 import torch
 
+from .. import tracing
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[1] / "build"
 
@@ -114,7 +116,8 @@ def build(verbose: bool = False, checked: bool = False) -> Path:
     lib = library_path(checked)
     if lib.is_file():
         return lib
-    return compile_library(CSRC, _flags(checked), lib, verbose)
+    with tracing.span("build"):
+        return compile_library(CSRC, _flags(checked), lib, verbose)
 
 
 def compile_library(csrc: Path, flags: list[str], lib: Path,
@@ -167,21 +170,22 @@ def library() -> ctypes.CDLL:
     """The kernels' library, built and loaded on first use."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build(checked=_checked)))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        for name in _SIZES:
-            fn = getattr(lib, name)
-            fn.argtypes = [_I64, _I64]
-            fn.restype = _I64
-        if _checked:
-            lib.dr_smem_configure.argtypes = [ctypes.c_uint, ctypes.c_uint]
-            lib.dr_smem_configure.restype = _I
-            lib.dr_smem_fault.argtypes = [ctypes.c_char_p, _I]
-            lib.dr_smem_fault.restype = _I
-        _lib = lib
+        with tracing.span("load"):
+            lib = ctypes.CDLL(str(build(checked=_checked)))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            for name in _SIZES:
+                fn = getattr(lib, name)
+                fn.argtypes = [_I64, _I64]
+                fn.restype = _I64
+            if _checked:
+                lib.dr_smem_configure.argtypes = [ctypes.c_uint, ctypes.c_uint]
+                lib.dr_smem_configure.restype = _I
+                lib.dr_smem_fault.argtypes = [ctypes.c_char_p, _I]
+                lib.dr_smem_fault.restype = _I
+            _lib = lib
     return _lib
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..config import DELTA_FILTER, ESCAPE_LEN
 from . import _kernels
 from .pack_ref import pack_bits
@@ -51,36 +52,44 @@ def pack_encode(x: torch.Tensor, nvalid: torch.Tensor,
     A CUDA tensor launches the kernel's passes on the current stream; a CPU
     tensor takes :func:`pack_encode_plain`.
     """
-    _kernels.require(x, "x", torch.int16, 2)
-    nseg, length = x.shape
-    _kernels.require(nvalid, "nvalid", torch.int32, 1, x.device)
-    if nvalid.shape[0] != nseg:
-        raise ValueError("nvalid must have one entry per row of x")
-    if prev0 is not None:
-        _kernels.require(prev0, "prev0", torch.int32, 1, x.device)
-        if prev0.shape[0] != nseg:
-            raise ValueError("prev0 must have one entry per row of x")
-    if not 0 <= k <= 15:
-        raise ValueError(f"k must be in 0..15, got {k}")
-    if cap < 0:
-        raise ValueError(f"cap must be >= 0, got {cap}")
-    if length * ESCAPE_LEN >= 1 << 31:
-        raise ValueError(f"segment length {length} overflows the int32 bit count")
-    if not _kernels.route(x):
-        return pack_encode_plain(x, nvalid, prev0, k, diff, cap)
-    words = torch.zeros((nseg, cap), dtype=torch.int32, device=x.device)
-    nwords = torch.empty(nseg, dtype=torch.int32, device=x.device)
-    nbits = torch.empty(nseg, dtype=torch.int32, device=x.device)
-    lib = _kernels.library()
-    scratch = torch.empty(max(lib.dr_pack_scratch_words(length, nseg), 1),
-                          dtype=torch.int32, device=x.device)
-    rc = lib.dr_pack_encode(
-        x.data_ptr(), nvalid.data_ptr(),
-        None if prev0 is None else prev0.data_ptr(),
-        words.data_ptr(), nwords.data_ptr(), nbits.data_ptr(),
-        scratch.data_ptr(), length, nseg, cap, k, int(diff),
-        _kernels.stream(),
-    )
-    _kernels.check(rc, "pack_encode")
-    _kernels.launches["pack_encode"] += 1
-    return words, nwords, nbits
+    with tracing.span("pack_encode", words=cap):
+        _kernels.require(x, "x", torch.int16, 2)
+        nseg, length = x.shape
+        _kernels.require(nvalid, "nvalid", torch.int32, 1, x.device)
+        if nvalid.shape[0] != nseg:
+            raise ValueError("nvalid must have one entry per row of x")
+        if prev0 is not None:
+            _kernels.require(prev0, "prev0", torch.int32, 1, x.device)
+            if prev0.shape[0] != nseg:
+                raise ValueError("prev0 must have one entry per row of x")
+        if not 0 <= k <= 15:
+            raise ValueError(f"k must be in 0..15, got {k}")
+        if cap < 0:
+            raise ValueError(f"cap must be >= 0, got {cap}")
+        if length * ESCAPE_LEN >= 1 << 31:
+            raise ValueError(
+                f"segment length {length} overflows the int32 bit count")
+        if not _kernels.route(x):
+            return pack_encode_plain(x, nvalid, prev0, k, diff, cap)
+        lib = _kernels.library()
+        with tracing.span("alloc", rows=nseg, length=length, words=cap):
+            words = torch.empty((nseg, cap), dtype=torch.int32,
+                                device=x.device)
+            with tracing.device("fill"):
+                words.zero_()
+            nwords = torch.empty(nseg, dtype=torch.int32, device=x.device)
+            nbits = torch.empty(nseg, dtype=torch.int32, device=x.device)
+            scratch = torch.empty(
+                max(lib.dr_pack_scratch_words(length, nseg), 1),
+                dtype=torch.int32, device=x.device)
+        with tracing.span("launch"), tracing.device("kernels"):
+            rc = lib.dr_pack_encode(
+                x.data_ptr(), nvalid.data_ptr(),
+                None if prev0 is None else prev0.data_ptr(),
+                words.data_ptr(), nwords.data_ptr(), nbits.data_ptr(),
+                scratch.data_ptr(), length, nseg, cap, k, int(diff),
+                _kernels.stream(),
+            )
+        _kernels.check(rc, "pack_encode")
+        _kernels.launches["pack_encode"] += 1
+        return words, nwords, nbits

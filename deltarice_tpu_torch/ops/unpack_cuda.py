@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from . import _kernels
 from .pack_ref import unpack_bits
 from .prefilter import prefilter_decode
@@ -56,25 +57,28 @@ def unpack_decode(words: torch.Tensor, n_samples: int, k: int,
     A CUDA tensor launches the kernel's passes on the current stream; a CPU
     tensor takes :func:`unpack_decode_plain`.
     """
-    _check(words, k)
-    if n_samples < 0:
-        raise ValueError(f"n_samples must be >= 0, got {n_samples}")
-    if not _kernels.route(words):
-        return unpack_decode_plain(words, n_samples, k, delta)
-    nseg, w = words.shape
-    out = torch.empty((nseg, n_samples), dtype=torch.int16,
-                      device=words.device)
-    lib = _kernels.library()
-    nbytes = lib.dr_unpack_scratch_bytes(w, nseg)
-    scratch = torch.empty(max(nbytes, 1), dtype=torch.uint8,
-                          device=words.device)
-    rc = lib.dr_unpack_decode(
-        words.data_ptr(), out.data_ptr(), scratch.data_ptr(), nbytes, w,
-        nseg, n_samples, k, int(delta), _kernels.stream(),
-    )
-    _kernels.check(rc, "unpack_decode")
-    _kernels.launches["unpack_decode"] += 1
-    return out
+    with tracing.span("unpack_decode", length=n_samples):
+        _check(words, k)
+        if n_samples < 0:
+            raise ValueError(f"n_samples must be >= 0, got {n_samples}")
+        if not _kernels.route(words):
+            return unpack_decode_plain(words, n_samples, k, delta)
+        nseg, w = words.shape
+        lib = _kernels.library()
+        with tracing.span("alloc", rows=nseg, length=n_samples, words=w):
+            out = torch.empty((nseg, n_samples), dtype=torch.int16,
+                              device=words.device)
+            nbytes = lib.dr_unpack_scratch_bytes(w, nseg)
+            scratch = torch.empty(max(nbytes, 1), dtype=torch.uint8,
+                                  device=words.device)
+        with tracing.span("launch"), tracing.device("kernels"):
+            rc = lib.dr_unpack_decode(
+                words.data_ptr(), out.data_ptr(), scratch.data_ptr(), nbytes,
+                w, nseg, n_samples, k, int(delta), _kernels.stream(),
+            )
+        _kernels.check(rc, "unpack_decode")
+        _kernels.launches["unpack_decode"] += 1
+        return out
 
 
 def unpack_tables(words: torch.Tensor, k: int) -> torch.Tensor:

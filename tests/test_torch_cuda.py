@@ -1399,3 +1399,57 @@ def test_smem_control_dies_naming_its_site(cuda):
     assert "[guard] ok control.clean" in out, out[-3000:]
     assert "[smem] unwritten 0x5a5a5a5a x32" in out, out[-3000:]
     assert smem.parse_site(site) == smem.past_end_site(), site
+
+
+@pytest.mark.parametrize("op", ["encode", "decode"])
+def test_trace_events_agree_with_the_profiler(cuda, op):
+    """The tracer's device events (``fill`` and ``kernels`` of an encode,
+    ``kernels`` of a decode) resolve, and over calls queued behind a spin
+    their sum is the profiler's kernel time of the same calls within 5 %."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deltarice_tpu_torch import tracing
+
+    rows, length, calls = 8192, 7000, 10
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randint(-20, 21, (rows, length), device="cuda", generator=g,
+                      dtype=torch.int32).cumsum(1).to(torch.int16)
+    nv = torch.full((rows,), length, dtype=torch.int32, device="cuda")
+    cfg = dt.RiceConfig(8, length)
+    full, counts = dt.encode_segments(x, nv, cfg, cfg.max_words(length),
+                                      device="cuda")
+    width = -(-(int(counts.max()) + 1) // 256) * 256
+    plane = full[:, :width].contiguous()
+    del full
+
+    def call():
+        if op == "encode":
+            dt.encode_segments(x, nv, cfg, width, device="cuda")
+        else:
+            dt.decode_segments(plane, length, cfg, device="cuda")
+
+    call()
+    torch.cuda.synchronize()
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SPIN_CYCLES // 4)  # the launches queue behind it
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    top = "dr.encode_segments" if op == "encode" else "dr.decode_segments"
+    snap = tracing.snapshot()
+    traced = tracing.calls(snap, top, rows)
+    assert len(traced) == calls
+    events = [sum(s["device_ms"].values()) for c in traced for s in c]
+    names = {n for c in traced for s in c for n in s["device_ms"]}
+    assert names == ({"fill", "kernels"} if op == "encode" else {"kernels"})
+    kernel_ms = sum((ev.end_ns() - ev.start_ns()) * 1e-6
+                    for ev in prof.profiler.kineto_results.events()
+                    if ev.device_type() == DeviceType.CUDA
+                    and not ev.is_user_annotation()
+                    and "spin" not in ev.name()
+                    and not ev.name().startswith("Memcpy"))
+    assert kernel_ms > 0
+    assert sum(events) == pytest.approx(kernel_ms, rel=0.05)
