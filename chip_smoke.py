@@ -1291,7 +1291,8 @@ def phase_long_codec(calls) -> list[dict]:
     """B1 on the NOPTREX split encode's sub-rows and B2 on one NOPTREX h5
     bucket (the first OPT_BUCKET segments of a decode bucket), each against
     its plain version on the card: B1's serial oracle, and for B2 the plain
-    model of its tiled passes (the serial oracle would step 500,000 samples
+    tiled decode from the walks of every tile from every entry phase,
+    chained tile after tile (the serial oracle would step 500,000 samples
     one torch call at a time)."""
     from deltarice_tpu_torch.ops.pack_cuda import pack_encode, pack_encode_plain
     from deltarice_tpu_torch.ops.tiled_model import decode_tiled
@@ -1318,7 +1319,7 @@ def phase_long_codec(calls) -> list[dict]:
     got = unpack_decode(words, n_samples, k, delta)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    want = decode_tiled(words, n_samples, k, delta)
+    want = decode_tiled(words, n_samples, k, delta, oracle=True)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = max_err(got, want)
@@ -2809,6 +2810,20 @@ def ragged_cases(tc) -> list[GuardCase]:
             cases.append(kernel_case(
                 f"c.unpack_tables.n{n}.s{nseg}.k{k}", ("unpack_tables",),
                 lambda w, k=k: unpack_tables(w, k), [words]))
+    # B2's check and repair: streams that never meet phase 0's walk (every
+    # tile from the third walked again) beside one that does, past the
+    # streams' end, at one tile, several (the warp hands the rest on after
+    # a few) and over 256 from the handover (several tiles a thread)
+    for nw in (40, 300, 9000):
+        rows = np.stack([tc.never_joining(nw),
+                         tc.never_joining(nw, 0x3FFFFFFF),
+                         tc.never_joining(nw, 0xFFFFFFFF)])
+        words = torch.from_numpy(rows.view(np.int32))
+        for n in (8 * nw - 40, 8 * nw + 40):
+            cases.append(kernel_case(
+                f"c.unpack_decode.never_joining.w{nw}.n{n}",
+                ("unpack_decode",), lambda w, n=n: unpack_decode(w, n, 3),
+                [words]))
     # concentration: slot counts off the 16-byte paths' width (8 slots)
     for i, (rows, r) in enumerate(((1, 1), (33, 7), (1, 9), (33, 1025),
                                    (1, 4099), (33, 7001))):

@@ -54,13 +54,22 @@ int dr_pack_encode(const int16_t *x, const int32_t *nvalid,
  * out[s * n_samples + i] (out 8-byte aligned); with delta the wrapping
  * int16 prefix sum is fused in, otherwise the un-zigzagged values are
  * stored. The cursor is clamped at bit 32 * (w - 1), as the serial decode
- * clamps it. scratch holds dr_unpack_scratch_bytes(w, nseg) bytes. */
+ * clamps it. scratch holds dr_unpack_scratch_bytes(w, nseg) bytes.
+ * rejoined (NULL or a device counter) gains the tiles that the first
+ * pass's check walked again. Afterwards the scratch starts with one entry
+ * per tile t of segment s, at [(s * ntiles + t) * 2 + 0] = codewords
+ * starting in the tile and [.. + 1] = (their wrapping int16 sum << 16) |
+ * entry phase walked from << 8 | exit phase, ntiles = ceil((w - 1) / 32):
+ * from the tile's true entry phase wherever its first codeword lies below
+ * n_samples. */
 int64_t dr_unpack_scratch_bytes(int64_t w, int64_t nseg);
 int dr_unpack_decode(const int32_t *words, int16_t *out, void *scratch,
                      int64_t scratch_bytes, int64_t w, int64_t nseg,
-                     int64_t n_samples, int k, int delta, void *stream);
+                     int64_t n_samples, int k, int delta,
+                     unsigned long long *rejoined, void *stream);
 
-/* B2's first pass alone: for tile t (32 words) of segment s and entry
+/* Every tile's walk from each entry phase, the oracle of the first pass:
+ * for tile t (32 words) of segment s and entry
  * phase e (0..24), tab[((s * ntiles + t) * 25 + e) * 2 + 0] = codewords
  * starting in the tile and [.. + 1] = (their wrapping int16 sum << 16) |
  * exit phase, ntiles = ceil((w - 1) / 32). */

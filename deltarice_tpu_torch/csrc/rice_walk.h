@@ -1,8 +1,8 @@
 /* The codeword walk that the decode kernels share (unpack.cu for B2,
  * split_decode.cu for B9): a cursor stepped through the codewords that
  * start in a run of words, phase 0's record of where it first starts a
- * codeword in each word, and the join of a walk from another entry phase
- * with that record.
+ * codeword in each word, the join of a walk from another entry phase
+ * with that record, and a walk from an entry phase on its own.
  *
  * A decode is a function of the bit it starts at, so two walks through the
  * same words that start a codeword at the same bit agree from there on. A
@@ -99,6 +99,17 @@ struct JoinFirstStarts {
   }
 };
 
+/* Visitor of a walk on its own: counts and sums every codeword. */
+struct Totals {
+  uint32_t count, sum;
+
+  __device__ bool operator()(int32_t v, int, int) {
+    ++count;
+    sum += (uint32_t)v;
+    return true;
+  }
+};
+
 /* Phase 0's walk through a run of lim bits, recording its first starts. */
 template <class Load>
 __device__ __forceinline__ Walked walk_phase0(const Load &load, int lim,
@@ -123,6 +134,17 @@ __device__ __forceinline__ Walked walk_joined(const Load &load, int e,
   JoinFirstStarts v{rec, stride, lim, p0, 0u, 0u};
   const int b = walk_words(load, e, lim, k, w0, w1, w2, v);
   return {b < lim ? p0.exit : (uint32_t)(b - lim), v.count, v.sum};
+}
+
+/* The walk from entry phase e through a run of lim bits, with no record to
+ * join: what it leaves, from every codeword it starts. */
+template <class Load>
+__device__ __forceinline__ Walked walk_from(const Load &load, int e, int lim,
+                                            int k, uint32_t w0, uint32_t w1,
+                                            uint32_t w2) {
+  Totals v{0u, 0u};
+  const int b = walk_words(load, e, lim, k, w0, w1, w2, v);
+  return {(uint32_t)(b - lim), v.count, v.sum};
 }
 
 }  // namespace dr

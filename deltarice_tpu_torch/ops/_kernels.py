@@ -51,7 +51,8 @@ _SIGNATURES = {
     "dr_transpose_geometry": [_I, _P],
     "dr_pack_encode": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I,
                        _P],
-    "dr_unpack_decode": [_P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _P],
+    "dr_unpack_decode": [_P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _P,
+                         _P],
     "dr_unpack_tables": [_P, _P, _I64, _I64, _I, _P],
     "dr_concentrate_packed": [_P, _P, _P, _I64, _I64, _I64, _P],
     "dr_concentrate_wide": [_P, _P, _P, _I64, _I64, _I64, _P],
@@ -75,12 +76,26 @@ _SIZES = ("dr_pack_scratch_words", "dr_unpack_scratch_bytes",
 #: its kernel and nowhere else
 launches: Counter = Counter()
 
+#: the tiles that B2's check walked again, one int64 scalar per device that
+#: the kernels add to and only ``tracing.snapshot()`` reads
+tiles_rejoined: dict = {}
+
 _lib: ctypes.CDLL | None = None
 _checked = False  # this process loads the checked build (use_checked)
 
 
 def reset_launches() -> None:
     launches.clear()
+
+
+def rejoined_counter(device: torch.device) -> torch.Tensor:
+    """The :data:`tiles_rejoined` scalar of ``device``, made (zero) on first
+    use."""
+    counter = tiles_rejoined.get(device)
+    if counter is None:
+        counter = tiles_rejoined[device] = torch.zeros(
+            (), dtype=torch.int64, device=device)
+    return counter
 
 
 def _sources() -> list[Path]:

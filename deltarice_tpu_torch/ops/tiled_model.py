@@ -9,15 +9,22 @@ can hold the card's first decode pass against it. Nothing on the codec's
 path calls it.
 
 Decode. A codeword is at most 25 bits, so the first codeword that starts
-in a tile of ``tile_words`` words starts at bit phase 0..24 of it. A tile's
-table maps each entry phase to (exit phase into the next tile, codewords
-starting in the tile, wrapping int16 sum of their values). Tables compose
-associatively; groups of ``group`` tables compose level by level until one
-group spans the segment, and each segment's start (phase 0, sample 0,
-value 0) is then walked down the levels to every tile's entry state. The
-serial decode clamps its cursor at bit ``32 * (W - 1)``: every sample past
-the last codeword that starts before the clamp re-decodes the codeword
-there (the pad word), which the tail fills arithmetically.
+in a tile of ``tile_words`` words starts at bit phase 0..24 of it. A
+tile's entry, walked from an entry phase, is (exit phase into the next
+tile, codewords starting in the tile, wrapping int16 sum of their values);
+:func:`decode_tables` gives it for all 25 entry phases, the oracle. The
+kernel's first pass walks each tile twice: from phase 0, and from its
+assumed entry phase, the previous tile's phase-0 exit (0 for a segment's
+first tile). A walk from a wrong phase meets the true walk within a few
+codewords, so the assumption is almost always right; where the previous
+tile's walk exits elsewhere, the tile is walked again from its true entry,
+as far as the samples asked for reach (:func:`decode_entries`). The entries then hold plain sums: groups of
+``group`` compose level by level until one group spans the segment, and
+each segment's start (phase 0, sample 0, value 0) is walked down the
+levels to every tile's entry state (:func:`entry_states`). The serial
+decode clamps its cursor at bit ``32 * (W - 1)``: every sample past the
+last codeword that starts before the clamp re-decodes the codeword there
+(the pad word), which the tail fills arithmetically.
 
 Encode. A tile of ``tile`` samples sums its codeword lengths; the
 exclusive prefix sum over a segment's tiles gives each tile's first bit;
@@ -46,13 +53,16 @@ def _ntiles(w: int, tile_words: int) -> int:
     return -(-(w - 1) // tile_words)
 
 
-def _walk(wu, pos, lim, k, visit):
+def _walk(wu, pos, lim, k, visit, rows=None):
     """Step every (segment, ...) cursor in ``pos`` (int64, in bits) through
     the codewords that start before ``lim``, calling ``visit(active,
-    value)`` with each step's int64 values; returns the exit positions."""
+    value)`` with each step's int64 values; returns the exit positions.
+    Cursor i walks row ``rows[i]`` of ``wu`` where given, else the rows in
+    order along the first axis."""
     w = wu.shape[1]
-    rows = torch.arange(wu.shape[0], device=wu.device).reshape(
-        -1, *([1] * (pos.dim() - 1)))
+    if rows is None:
+        rows = torch.arange(wu.shape[0], device=wu.device).reshape(
+            -1, *([1] * (pos.dim() - 1)))
     active = pos < lim
     while bool(active.any()):
         wi = (pos >> 5).clamp(max=w - 1)
@@ -76,104 +86,146 @@ def _bounds(w: int, tile_words: int, device):
 
 def decode_tables(words: torch.Tensor, k: int,
                   tile_words: int = TILE_WORDS) -> torch.Tensor:
-    """B2's first pass: (nseg, ntiles, 25, 3) int32 of (exit phase,
-    codewords, wrapping int16 sum) for every tile and entry phase."""
+    """Every tile's entry from every entry phase: (nseg, ntiles, 25, 3)
+    int32 of (exit phase, codewords, wrapping int16 sum)."""
     nseg, w = words.shape
     start, end = _bounds(w, tile_words, words.device)
-    lim = end[None, :, None]
-    pos = (start[:, None] + torch.arange(PHASES, device=words.device)).expand(
-        nseg, -1, -1)
-    count = torch.zeros(pos.shape, dtype=torch.int64, device=words.device)
+    entry = torch.arange(PHASES, device=words.device).expand(
+        nseg, start.numel(), -1)
+    return _tile_walks(as_u32(words), start[:, None], end[:, None], entry,
+                       k).to(torch.int32)
+
+
+def _step(tab, phase):
+    """Entries (int64) of tables ``tab`` (..., 25, 3) at ``phase`` (...)."""
+    idx = phase.to(torch.int64)[..., None, None].expand(*phase.shape, 1, 3)
+    return torch.gather(tab, -2, idx).squeeze(-2).to(torch.int64)
+
+
+def _tile_walks(wu, start, end, entry, k, rows=None):
+    """(exit phase, codewords, wrapping int16 sum) int64 of the walks from
+    bit ``start + entry`` of each row of ``wu`` (of row ``rows[i]`` for
+    walk i, where given) over the codewords that start before ``end``;
+    ``entry`` is (rows, ...)."""
+    count = torch.zeros(entry.shape, dtype=torch.int64, device=wu.device)
     total = torch.zeros_like(count)
 
     def visit(active, v):
         count.add_(active.to(torch.int64))
         total.add_(torch.where(active, v, 0))
 
-    pos = _walk(as_u32(words), pos, lim, k, visit)
-    return torch.stack([pos - lim, count, wrap16(total)], dim=-1).to(
-        torch.int32)
+    pos = _walk(wu, start + entry, end, k, visit, rows)
+    return torch.stack([pos - end, count, wrap16(total)], dim=-1)
 
 
-def _step(tab, phase):
-    """Entries (int64) of tables ``tab`` (..., 25, 3) at ``phase``: one
-    entry per table for ``phase`` (...), or one per entry phase for
-    ``phase`` (..., 25)."""
-    one = phase.dim() == tab.dim() - 2
-    idx = phase.to(torch.int64)[..., None].expand(*phase.shape, 3)
-    if one:
-        idx = idx.unsqueeze(-2)
-    v = torch.gather(tab, -2, idx)
-    return (v.squeeze(-2) if one else v).to(torch.int64)
+def decode_entries(words: torch.Tensor, k: int, n_samples: int,
+                   tile_words: int = TILE_WORDS):
+    """B2's first pass with its check and repair: each tile walked from
+    phase 0 and from its assumed entry phase (the previous tile's phase-0
+    exit, 0 for a segment's first tile); a tile whose true entry phase
+    (the previous tile's exit) differs from the assumed one, and whose
+    first codeword is below ``n_samples``, walked again from its true
+    entry. The kernel repairs tile after tile, or, past a long chain, from
+    every tile's exit from each entry phase; here every tile whose entry
+    disagrees with the exit before it is walked again at once, round after
+    round until none does (each round makes right the first wrong tile of
+    every chain), and past ``n_samples`` the one join stands: the same
+    entries. Returns ((nseg, ntiles, 4) int32 of (entry phase walked from,
+    exit phase, codewords, wrapping int16 sum), the number of tiles walked
+    again)."""
+    nseg, w = words.shape
+    dev = words.device
+    wu = as_u32(words)
+    start, end = _bounds(w, tile_words, dev)
+    n = start.numel()
+    p0 = _tile_walks(wu, start, end, torch.zeros((nseg, n), dtype=torch.int64,
+                                                 device=dev), k)
+    assumed = torch.zeros((nseg, n), dtype=torch.int64, device=dev)
+    assumed[:, 1:] = p0[:, :-1, _EXIT]
+    joined = _tile_walks(wu, start, end, assumed, k)  # the one join a tile
+    entry, ent = assumed.clone(), joined.clone()
+    while True:
+        prev = torch.zeros_like(entry)
+        prev[:, 1:] = ent[:, :-1, _EXIT]
+        s, t = (prev != entry).nonzero(as_tuple=True)
+        if s.numel() == 0:
+            break
+        ent[s, t] = _tile_walks(wu, start[t], end[t], prev[s, t], k, rows=s)
+        entry[s, t] = prev[s, t]
+    first = ent[..., _COUNT].cumsum(dim=1) - ent[..., _COUNT]
+    again = (entry != assumed) & (first < n_samples)
+    entry = torch.where(again, entry, assumed)
+    ent = torch.where(again[..., None], ent, joined)
+    return (torch.cat([entry[..., None], ent], dim=-1).to(torch.int32),
+            int(again.sum()))
 
 
-def _grouped(tab, group):
-    """(nseg, n, 25, 3) -> (nseg, ceil(n / group), group, 25, 3), padded
-    with identity tables (exit = entry phase, no codewords)."""
-    nseg, n = tab.shape[:2]
+def _grouped(ent, group):
+    """(nseg, n, 3) -> (nseg, ceil(n / group), group, 3), padded with
+    empty entries (no codewords)."""
+    nseg, n = ent.shape[:2]
     nup = -(-n // group)
-    ident = torch.zeros((nseg, nup * group - n, PHASES, 3), dtype=tab.dtype,
-                        device=tab.device)
-    ident[..., _EXIT] = torch.arange(PHASES, dtype=tab.dtype,
-                                     device=tab.device)
-    return torch.cat([tab, ident], dim=1).reshape(nseg, nup, group, PHASES, 3)
+    pad = torch.zeros((nseg, nup * group - n, 3), dtype=ent.dtype,
+                      device=ent.device)
+    return torch.cat([ent, pad], dim=1).reshape(nseg, nup, group, 3)
 
 
-def compose(tab: torch.Tensor, group: int = GROUP) -> torch.Tensor:
-    """One level up: the table of each group of ``group`` consecutive
-    tables, composed in order."""
-    g = _grouped(tab, group)
-    phase = torch.arange(PHASES, device=tab.device).expand(*g.shape[:2], -1)
-    count = torch.zeros(phase.shape, dtype=torch.int64, device=tab.device)
-    total = torch.zeros_like(count)
-    for j in range(group):
-        v = _step(g[:, :, j], phase)
-        phase = v[..., _EXIT]
-        count = count + v[..., _COUNT]
-        total = total + v[..., _SUM]
-    return torch.stack([phase, count, wrap16(total)], dim=-1).to(torch.int32)
+def compose(ent: torch.Tensor, group: int = GROUP) -> torch.Tensor:
+    """One level up: the entry of each group of ``group`` consecutive
+    entries (exit phase, codewords, wrapping sum): its last member's exit
+    (a padded group's last real one), its members' sums."""
+    g = _grouped(ent.to(torch.int64), group)
+    n = ent.shape[1]
+    last = torch.clamp(n - 1 - torch.arange(g.shape[1], device=ent.device)
+                       * group, max=group - 1)
+    exit_ = g[:, torch.arange(g.shape[1], device=ent.device), last, _EXIT]
+    return torch.stack([exit_, g[..., _COUNT].sum(dim=2),
+                        wrap16(g[..., _SUM].sum(dim=2))],
+                       dim=-1).to(torch.int32)
 
 
-def resolve(tab: torch.Tensor, ent_up: torch.Tensor,
+def resolve(ent: torch.Tensor, ent_up: torch.Tensor,
             group: int = GROUP) -> torch.Tensor:
     """One level down: the entry state (phase, first sample, running
-    value) of every table of ``tab`` from its group's entry state
+    value) of every entry of ``ent`` from its group's entry state
     ``ent_up`` (nseg, ceil(n / group), 3)."""
-    n = tab.shape[1]
-    g = _grouped(tab, group)
+    n = ent.shape[1]
+    g = _grouped(ent.to(torch.int64), group)
     phase, first, run = ent_up.to(torch.int64).unbind(-1)
-    ent = []
+    states = []
     for j in range(group):
-        ent.append(torch.stack([phase, first, run], dim=-1))
-        v = _step(g[:, :, j], phase)
+        states.append(torch.stack([phase, first, run], dim=-1))
+        v = g[:, :, j]
         phase, first, run = (v[..., _EXIT], first + v[..., _COUNT],
                              wrap16(run + v[..., _SUM]))
-    return torch.stack(ent, dim=2).reshape(tab.shape[0], -1, 3)[:, :n].to(
+    return torch.stack(states, dim=2).reshape(ent.shape[0], -1, 3)[:, :n].to(
         torch.int32)
 
 
-def entry_states(tab: torch.Tensor, group: int = GROUP) -> torch.Tensor:
+def entry_states(ent: torch.Tensor, group: int = GROUP) -> torch.Tensor:
     """Every tile's entry state (nseg, ntiles, 3) = (phase, first sample,
-    running value), by the kernel's levels: compose up until one group
-    spans a segment, then resolve down from each segment's start."""
-    sizes = [tab.shape[1]]
+    running value) from one entry a tile (nseg, ntiles, 3) = (exit phase,
+    codewords, wrapping sum), by the kernel's levels: compose up until one
+    group spans a segment, then resolve down from each segment's start."""
+    sizes = [ent.shape[1]]
     while sizes[-1] > 1:
         sizes.append(-(-sizes[-1] // group))
     if sizes[-1] == 0:
-        return torch.zeros((tab.shape[0], 0, 3), dtype=torch.int32,
-                           device=tab.device)
-    levels = [tab]
-    for _ in range(len(sizes) - 2):  # the top level needs no table
+        return torch.zeros((ent.shape[0], 0, 3), dtype=torch.int32,
+                           device=ent.device)
+    levels = [ent]
+    for _ in range(len(sizes) - 2):  # the top level needs no entries
         levels.append(compose(levels[-1], group))
-    ent = torch.zeros((tab.shape[0], 1, 3), dtype=torch.int32,
-                      device=tab.device)
+    states = torch.zeros((ent.shape[0], 1, 3), dtype=torch.int32,
+                         device=ent.device)
     for t in reversed(levels[: len(sizes) - 1]):
-        ent = resolve(t, ent, group)
-    return ent
+        states = resolve(t, states, group)
+    return states
 
 
 def entry_states_serial(tab: torch.Tensor) -> torch.Tensor:
-    """The same entry states, tile after tile."""
+    """The true entry states from the tables of every entry phase
+    (:func:`decode_tables`), tile after tile: the oracle."""
     nseg, n = tab.shape[:2]
     phase = torch.zeros(nseg, dtype=torch.int64, device=tab.device)
     first = torch.zeros_like(phase)
@@ -189,11 +241,15 @@ def entry_states_serial(tab: torch.Tensor) -> torch.Tensor:
 
 def decode_tiled(words: torch.Tensor, n_samples: int, k: int,
                  delta: bool = True, tile_words: int = TILE_WORDS,
-                 group: int = GROUP) -> torch.Tensor:
-    """The whole tiled decode: tables, entry states, each tile decoded from
-    its entry phase, and the clamped tail. Equals the serial decode,
-    samples past each stream's end included. Returns (nseg, n_samples)
-    int16, on ``words``' device."""
+                 group: int = GROUP, oracle: bool = False) -> torch.Tensor:
+    """The whole tiled decode: one entry a tile (checked and repaired),
+    entry states, each tile decoded from its entry phase, and the clamped
+    tail. With ``oracle`` the entry states come instead from every tile's
+    walk from every entry phase chained tile after tile
+    (:func:`decode_tables`, :func:`entry_states_serial`), which knows
+    nothing of the pass's assumption, check and repair. Equals the serial
+    decode, samples past each stream's end included. Returns (nseg,
+    n_samples) int16, on ``words``' device."""
     nseg, w = words.shape
     dev = words.device
     wu = as_u32(words)
@@ -202,11 +258,16 @@ def decode_tiled(words: torch.Tensor, n_samples: int, k: int,
     first_end = torch.zeros(nseg, dtype=torch.int64, device=dev)
     run_end = torch.zeros_like(first_end)
     if w > 1:
-        tab = decode_tables(words, k, tile_words)
-        ent = entry_states(tab, group).to(torch.int64)
+        if oracle:
+            tab = decode_tables(words, k, tile_words)
+            states = entry_states_serial(tab).to(torch.int64)
+            ent = _step(tab, states[..., 0])
+        else:
+            ent = decode_entries(words, k, n_samples, tile_words)[0][..., 1:]
+            states = entry_states(ent, group).to(torch.int64)
         start, end = _bounds(w, tile_words, dev)
-        idx = ent[..., 1].clone()
-        run = ent[..., 2].clone()
+        idx = states[..., 1].clone()
+        run = states[..., 2].clone()
 
         def visit(active, v):
             nonlocal run
@@ -217,10 +278,10 @@ def decode_tiled(words: torch.Tensor, n_samples: int, k: int,
             out.scatter_(1, torch.where(live, idx, n_samples), run)
             idx.add_(live.to(torch.int64))
 
-        _walk(wu, start + ent[..., 0], end[None, :], k, visit)
-        last = _step(tab[:, -1], ent[:, -1, 0])
-        first_end = ent[:, -1, 1] + last[:, _COUNT]
-        run_end = ent[:, -1, 2] + last[:, _SUM]
+        _walk(wu, start + states[..., 0], end[None, :], k, visit)
+        last = ent[:, -1].to(torch.int64)
+        first_end = states[:, -1, 1] + last[:, _COUNT]
+        run_end = states[:, -1, 2] + last[:, _SUM]
     # the tail: the codeword at the clamp, once per remaining sample
     zero = torch.zeros_like(first_end)
     u, _ = decode_codeword(wu[:, -1], zero, zero, k)

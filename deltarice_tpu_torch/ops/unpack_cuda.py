@@ -4,8 +4,11 @@ any length, no reduced service rate), parallel inside each segment.
 
 Layout: ``words`` is (nseg, W) segment-major and the samples come back as
 (nseg, n_samples), the codec's own layout. :mod:`.tiled_model` is the plain
-model of the kernel's passes (tile tables, their composition, the decode
-from resolved phases); :func:`unpack_decode_plain` is the serial oracle.
+model of the kernel's passes (one entry a tile from its assumed entry
+phase, checked and repaired; their composition; the decode from resolved
+phases); :func:`unpack_decode_plain` is the serial oracle. The tiles that
+the check walks again add to the device counter ``tiles_rejoined``
+(``tracing.snapshot()`` reads it).
 """
 
 from __future__ import annotations
@@ -71,10 +74,12 @@ def unpack_decode(words: torch.Tensor, n_samples: int, k: int,
             nbytes = lib.dr_unpack_scratch_bytes(w, nseg)
             scratch = torch.empty(max(nbytes, 1), dtype=torch.uint8,
                                   device=words.device)
+            rejoined = _kernels.rejoined_counter(words.device)
         with tracing.span("launch"), tracing.device("kernels"):
             rc = lib.dr_unpack_decode(
                 words.data_ptr(), out.data_ptr(), scratch.data_ptr(), nbytes,
-                w, nseg, n_samples, k, int(delta), _kernels.stream(),
+                w, nseg, n_samples, k, int(delta), rejoined.data_ptr(),
+                _kernels.stream(),
             )
         _kernels.check(rc, "unpack_decode")
         _kernels.launches["unpack_decode"] += 1
@@ -82,10 +87,11 @@ def unpack_decode(words: torch.Tensor, n_samples: int, k: int,
 
 
 def unpack_tables(words: torch.Tensor, k: int) -> torch.Tensor:
-    """B2's first pass alone: (nseg, ntiles, 25, 3) int32 (exit phase,
-    codewords, wrapping int16 sum) of every tile of ``TILE_WORDS`` words and
-    entry phase, as :func:`.tiled_model.decode_tables` computes them. A CUDA
-    tensor launches the pass; a CPU tensor takes the plain model."""
+    """Every tile's walk from each of the 25 entry phases, the oracle of
+    B2's first pass: (nseg, ntiles, 25, 3) int32 (exit phase, codewords,
+    wrapping int16 sum) of every tile of ``TILE_WORDS`` words and entry
+    phase, as :func:`.tiled_model.decode_tables` computes them. A CUDA
+    tensor launches the kernel; a CPU tensor takes the plain model."""
     _check(words, k)
     if not _kernels.route(words):
         return decode_tables(words, k)

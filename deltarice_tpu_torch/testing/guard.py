@@ -344,9 +344,11 @@ MUTANTS = (
     ("concentrate_wide.cu", "const int32_t dj = d[j];",
      "const int32_t dj = d[j - 1];", "end", "c.concentrate_wide.",
      "differs"),
-    # B2's top-level entry states are never zeroed: the walk starts from the
-    # poison, whose phase indexes past the tables
-    ("unpack.cu", "base + p.ent[p.levels], 0, nseg * sizeof(uint2), st);",
+    # B2's top-level entry states, flags and count of segments handed on
+    # are never zeroed: the check starts from the poisoned flag, which
+    # points far before the states
+    ("unpack.cu",
+     "base + p.ent[p.levels], 0, nseg * kTopBytes + sizeof(uint32_t), st);",
      "base + p.ent[p.levels], 0, 0, st);", "end", "c.unpack_decode.n1025",
      "illegal"),
 )

@@ -318,6 +318,10 @@ MUTANTS = (
            "DR_SM(rec, ((next >> 5) + 1) * stride) =", 0, 0xA5,
            ("c.unpack_tables.n4099", "c.unpack_tables.n7001"),
            "bounds rice_walk.h rec"),
+    Mutant("B2's first pass reads the next thread's phase-0 exit",
+           "unpack.cu", "DR_SM(exit0, threadIdx.x - 1)",
+           "DR_SM(exit0, threadIdx.x + 1)", 0, 0xA5,
+           ("c.unpack_decode.n4099",), "bounds unpack.cu exit0"),
     # unperturbed (a sleep before each read would let the copies land), and
     # on full Nab rows, whose tiles go by cp.async (16-byte rows)
     Mutant("the generic inverse without cp_async_wait_one", "prefilter.cu",

@@ -27,7 +27,11 @@ With it on:
 
 :data:`counters` are always on: rows encoded and encoded again past the
 word cap, rows decoded and decoded again after the split decode flagged
-them, chunks re-encoded by verification, calls dropped from the ring.
+them, chunks re-encoded by verification, calls dropped from the ring, and
+``tiles_rejoined``, the tiles that B2's check walked again from their
+true entry phase (``csrc/unpack.cu``). That one the kernels add on the
+card, to a device scalar that no call reads back: :func:`snapshot` reads
+it into :data:`counters`, once, with the device events.
 Kernel launches stay counted in ``ops._kernels.launches``;
 :func:`snapshot` reports them beside these.
 
@@ -230,15 +234,24 @@ def snapshot() -> dict:
                     device_ms[ev[0]] = device_ms.get(ev[0], 0.0) + ms
             rec["device_ms"] = device_ms
             spans.append(rec)
+    rejoined = sum(int(c.item()) for c in _kernels.tiles_rejoined.values())
+    if rejoined:
+        counters["tiles_rejoined"] = rejoined
+    else:
+        counters.pop("tiles_rejoined", None)
     return {"spans": spans, "counters": dict(counters),
             "launches": dict(_kernels.launches)}
 
 
 def clear() -> None:
-    """Empty the ring and zero the counters (not the launch counts:
-    ``ops._kernels.reset_launches``)."""
+    """Empty the ring and zero the counters, the device's too (not the
+    launch counts: ``ops._kernels.reset_launches``)."""
+    from .ops import _kernels
+
     _ring.clear()
     counters.clear()
+    for counter in _kernels.tiles_rejoined.values():
+        counter.zero_()
 
 
 # --- reading a snapshot ---------------------------------------------------

@@ -49,11 +49,12 @@ from deltarice_tpu_torch.ops.split_decode_cuda import (
     split_decode,
     split_decode_passes,
 )
-from deltarice_tpu_torch.ops.tiled_model import decode_tiled
+from deltarice_tpu_torch.ops.tiled_model import decode_entries, decode_tiled
 from deltarice_tpu_torch.ops.unpack_cuda import unpack_decode, unpack_tables
 import hostile_cases as hc
 from prefilter_cases import EDGES, GRID, blocked_grid, grid_filter, samples
 from tiled_cases import CASES as TILED_CASES, KINDS as TILED_KINDS, planes
+from tiled_cases import never_joining
 
 pytestmark = pytest.mark.cuda
 
@@ -261,6 +262,175 @@ def test_unpack_decode_pad_only_and_cut_streams_match_plain(cuda):
     for w in (pad, words[:, :2], words[:, :33], words[:, :70]):
         for delta in (True, False):
             _assert_same(*_both(unpack_decode, w.contiguous(), 700, 3, delta))
+
+
+def _b2_entries(words, n_samples, k):
+    """B2's first pass, checked and repaired, as a decode leaves it: ((nseg,
+    ntiles, 4) int32 of (entry phase walked from, exit phase, codewords,
+    wrapping int16 sum) of every tile, the tiles walked again), read from
+    the start of the decode's scratch, where level 0's entries lie. A CPU
+    tensor takes the plain model."""
+    if not words.is_cuda:
+        return decode_entries(words, k, n_samples)
+    nseg, w = words.shape
+    ntiles = max(-(-(w - 1) // 32), 0)
+    lib = _kernels.library()
+    nbytes = lib.dr_unpack_scratch_bytes(w, nseg)
+    scratch = torch.empty(max(nbytes, 1), dtype=torch.uint8,
+                          device=words.device)
+    out = torch.empty((nseg, n_samples), dtype=torch.int16,
+                      device=words.device)
+    counter = torch.zeros((), dtype=torch.int64, device=words.device)
+    rc = lib.dr_unpack_decode(
+        words.data_ptr(), out.data_ptr(), scratch.data_ptr(), nbytes, w, nseg,
+        n_samples, k, 1, counter.data_ptr(), _kernels.stream())
+    assert rc == 0
+    raw = scratch[: nseg * ntiles * 8].view(torch.int32).view(nseg, ntiles, 2)
+    ent = torch.stack([(raw[..., 1] >> 8) & 0xFF, raw[..., 1] & 0xFF,
+                       raw[..., 0], raw[..., 1] >> 16], dim=-1)
+    return ent, int(counter.item())
+
+
+def _entries_cases(k):
+    """B2's first pass at k: Nab and escape-heavy rows with an empty and a
+    short segment, past the streams' end and cut short of it, W = 1 and 2,
+    and at k = 3 two streams that never meet phase 0's walk beside them:
+    (words, n_samples) pairs."""
+    x = np.concatenate([_nab(10, 2000), _escape_heavy(4, 2000)])
+    nv = np.full(14, 2000, np.int32)
+    nv[3], nv[7] = 0, 777
+    cap = dt.RiceConfig(1 << k).max_words(2000) + 1
+    words, nwords, _ = pack_encode(torch.from_numpy(x), torch.from_numpy(nv),
+                                   None, k, True, cap)
+    words = _cut(words, nwords)
+    # 32 samples a word: every tile's first codeword below (a tile holds at
+    # most 1024)
+    cases = [(words, 2000), (words, 32 * words.shape[1]),
+             (words[:, :1].contiguous(), 50),
+             (words[:, :2].contiguous(), 50), (words[:, :70].contiguous(), 900)]
+    if k == 3:
+        nw = words.shape[1] - 1
+        joined = np.concatenate([np.stack([never_joining(nw),
+                                           never_joining(nw, 0x3FFFFFFF)]),
+                                 words.numpy().view(np.uint32)])
+        joined = torch.from_numpy(joined.view(np.int32))
+        cases += [(joined, 2000), (joined, 8 * nw), (joined, 32 * (nw + 1))]
+    return cases
+
+
+@pytest.mark.parametrize("k", range(16))
+def test_b2_entries_and_tiles_rejoined_match_the_plain_model(cuda, k):
+    """B2's first pass with its check and repair: each tile's entry (the
+    phase it was walked from, exit, codewords, sum) and the tiles walked
+    again equal ``tiled_model.decode_entries``; where the streams never
+    join, every tile from the third on is walked again."""
+    for words, n in _entries_cases(k):
+        got, want = _both(_b2_entries, words, n, k)
+        _assert_same(got[0], want[0])
+        assert got[1] == want[1], (n, got[1], want[1])
+        if n == 32 * words.shape[1] and k == 3:  # the never-joining rows
+            assert got[1] >= 2 * (got[0].shape[1] - 2)
+
+
+def test_unpack_decode_never_joining_noptrex_row_and_misaligned_out(cuda):
+    """Two 500,000-sample rows at k = 3 whose walk never meets phase 0's:
+    every tile from the third is walked again, and the decode is exact
+    (a 5- or 6-bit first codeword, then -4 each), also into outputs that
+    start 2, 4 and 6 bytes off an 8-byte boundary (C2)."""
+    nw, n = 62500, 499999  # the last codeword would run into the pad word
+    words = torch.from_numpy(np.stack([
+        never_joining(nw), never_joining(nw, 0x3FFFFFFF)]).view(np.int32))
+    wc = words.cuda()
+    first = np.array([-8, -12], np.int64)[:, None]
+    want = first - 4 * np.arange(n, dtype=np.int64)[None, :]
+    want = torch.from_numpy((((want + 0x8000) & 0xFFFF) - 0x8000).astype(
+        np.int16))
+    ntiles = -(-nw // 32)
+    counter = torch.zeros((), dtype=torch.int64, device=cuda)
+    lib = _kernels.library()
+    nbytes = lib.dr_unpack_scratch_bytes(nw + 1, 2)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=cuda)
+    for off in range(4):  # int16s past an 8-byte boundary
+        buf = torch.zeros(2 * n + 8, dtype=torch.int16, device=cuda)
+        out = buf[off: off + 2 * n]
+        assert out.data_ptr() % 8 == 2 * off
+        rc = lib.dr_unpack_decode(
+            wc.data_ptr(), out.data_ptr(), scratch.data_ptr(), nbytes,
+            nw + 1, 2, n, 3, 1, counter.data_ptr(), _kernels.stream())
+        assert rc == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(2, n).cpu(), want), off
+        assert int((buf[:off] != 0).sum() + (buf[off + 2 * n:] != 0).sum()) \
+            == 0
+    assert int(counter.item()) == 4 * 2 * (ntiles - 2)
+    ent, rejoined = _b2_entries(wc, n, 3)
+    assert rejoined == 2 * (ntiles - 2)
+    assert torch.equal(ent[:, 2:, 0].cpu(), torch.tensor([[1], [2]]).expand(
+        2, ntiles - 2).to(torch.int32))
+
+
+@pytest.mark.parametrize("name,rows,width", [("nab", 2048, 1280),
+                                             ("noptrex", 8, 65792)])
+def test_tiles_rejoined_on_profile_batches_is_the_oracles(cuda, name, rows,
+                                                          width):
+    """On Nab- and NOPTREX-profile streams in the benchmark's planes (zero
+    padding to a multiple of 256 words) the counter that
+    ``tracing.snapshot()`` reads equals the tiles whose assumed entry is
+    wrong below the samples, by the walk from every entry phase
+    (``unpack_tables``) chained tile after tile; the decode gives the
+    samples back. The zero padding never joins, so decoding past the
+    streams' end walks its tiles again."""
+    from deltarice_tpu_torch import tracing
+    from deltarice_tpu_torch.ops.tiled_model import entry_states_serial
+
+    prof = get_profile(name)
+    x = torch.from_numpy(prof.synthetic(rows, seed=5))
+    length, k = x.shape[1], prof.config.k
+    nv = torch.full((rows,), length, dtype=torch.int32)
+    words, nwords = dt.encode_segments(x, nv, prof.config, width,
+                                       device="cuda")
+    assert int(nwords.max()) < width
+    tab = unpack_tables(words, k)
+    states = entry_states_serial(tab)
+    assumed = torch.zeros_like(states[..., 0])
+    assumed[:, 1:] = tab[:, :-1, 0, 0]
+    wrong = states[..., 0] != assumed
+    for n in (length, length + 2000):
+        tracing.clear()
+        out = dt.decode_segments(words, n, prof.config, device="cuda")
+        assert torch.equal(out[:, :length].cpu(), x)
+        got = tracing.snapshot()["counters"].get("tiles_rejoined", 0)
+        want = int((wrong & (states[..., 1] < n)).sum())
+        print(f"{name} ({rows}, {width}) n={n}: tiles_rejoined {got} of "
+              f"{wrong.numel()} tiles ({got / wrong.numel():.2e})")
+        assert got == want
+        if n > length:
+            assert got > 0
+    tracing.clear()
+
+
+def test_tiles_rejoined_adds_no_synchronisation_with_tracing_off(cuda):
+    """A decode queues its launches with tracing off and the device counter
+    read by no one: under ``torch.cuda.set_sync_debug_mode("error")`` no
+    call synchronises; the counter is read once, by ``snapshot()``."""
+    from deltarice_tpu_torch import tracing
+
+    nw = 300
+    words = torch.from_numpy(np.stack([never_joining(nw)]).view(
+        np.int32)).cuda()
+    tracing.clear()
+    assert not tracing.on()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            unpack_decode(words, 8 * nw - 2, 3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ntiles = -(-nw // 32)
+    assert tracing.snapshot()["counters"]["tiles_rejoined"] == 3 * (ntiles - 2)
+    tracing.clear()
+    assert "tiles_rejoined" not in tracing.snapshot()["counters"]
 
 
 def test_tiled_codec_at_a_noptrex_segment(cuda):

@@ -2,15 +2,19 @@
 (``deltarice_tpu_torch.ops.tiled_model``) against the JAX package's
 serial codec, on the CPU.
 
-B2 and B1 are parallel inside each segment: B2 decodes tiles of words from
-entry phases resolved by composing per-tile tables, B1 encodes tiles of
+B2 and B1 are parallel inside each segment: B2 walks each tile of words
+from phase 0 and from its assumed entry phase, walks a tile again from its
+true entry phase where the assumption is wrong, sums the tiles' entries to
+every tile's start and decodes the tiles from there; B1 encodes tiles of
 samples at bit offsets from a prefix sum of tile totals. The model computes
 each of those passes in plain torch; here every result must equal
 ``_decode_segments_scan`` / ``unpack_bits`` and ``_encode_segments_xla``
 exactly (tolerance 0: the codec is integer and lossless), at every k, on
-escape-heavy rows, with codewords and escapes across tile boundaries,
-every entry phase 0..24, W = 1, empty segments and samples decoded past a
-stream's end (the clamped cursor). The kernels themselves are held against
+escape-heavy rows, with codewords and escapes across tile boundaries, on
+streams whose walk never meets phase 0's, W = 1, empty segments and samples
+decoded past a stream's end (the clamped cursor); each tile's entry must
+equal the walk from every entry phase 0..24 (``decode_tables``, itself held
+to a bit-by-bit walk) at its true entry phase. The kernels themselves are held against
 the same model and the serial oracles on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
@@ -27,6 +31,8 @@ from deltarice_tpu.ops import rice as jrice
 from deltarice_tpu_torch.ops import tiled_model as tm
 from deltarice_tpu_torch.ops.pack_cuda import pack_encode
 from deltarice_tpu_torch.ops.unpack_cuda import unpack_decode, unpack_tables
+
+from tiled_cases import never_joining
 
 LENGTH = 700
 
@@ -99,10 +105,12 @@ def test_tiled_decode_any_tiling_matches_unpack_bits(tile_words, group):
     got = tm.decode_tiled(_t(words), n, k, False, tile_words, group)
     np.testing.assert_array_equal(got.numpy(), want)
     tab = tm.decode_tables(_t(words), k, tile_words)
-    ent = tm.entry_states(tab, group)
-    assert torch.equal(ent, tm.entry_states_serial(tab))
+    want_states = tm.entry_states_serial(tab)
+    ent = tm.decode_entries(_t(words), k, 1 << 30, tile_words)[0]
+    assert torch.equal(tm.entry_states(ent[..., 1:], group), want_states)
     if tile_words == 1:  # every entry phase occurs on this data
-        assert set(ent[..., 0].unique().tolist()) == set(range(tm.PHASES))
+        assert set(want_states[..., 0].unique().tolist()) == set(
+            range(tm.PHASES))
 
 
 def _value(bits) -> int:
@@ -174,17 +182,99 @@ def test_tiled_decode_of_pad_only_and_cut_streams():
 
 
 def test_compose_levels_equal_the_serial_composition():
-    """Random tables (any exit phase, counts and sums): the levels of
-    groups compose to the same entry states as tile after tile."""
+    """Random entries (any exit phase, counts and sums), one a tile: the
+    levels of groups compose to the same entry states as tile after tile,
+    which is the serial composition of tables that give the same entry
+    from every phase."""
     rng = np.random.default_rng(3)
     n = 1100
-    tab = np.stack([rng.integers(0, tm.PHASES, (3, n, tm.PHASES)),
-                    rng.integers(1, 1025, (3, n, tm.PHASES)),
-                    rng.integers(-32768, 32768, (3, n, tm.PHASES))], axis=-1)
-    tab = torch.from_numpy(tab.astype(np.int32))
-    want = tm.entry_states_serial(tab)
+    ent = np.stack([rng.integers(0, tm.PHASES, (3, n)),
+                    rng.integers(1, 1025, (3, n)),
+                    rng.integers(-32768, 32768, (3, n))], axis=-1)
+    ent = torch.from_numpy(ent.astype(np.int32))
+    want = tm.entry_states_serial(ent[:, :, None].expand(-1, -1, tm.PHASES,
+                                                         -1))
     for group in (2, 7, 32):
-        assert torch.equal(tm.entry_states(tab, group), want)
+        assert torch.equal(tm.entry_states(ent, group), want)
+
+
+def _true_walk(tab, n_samples):
+    """From the tables of every entry phase (the oracle): each tile's true
+    entry phase, the phase-0 exit of the tile before it (the assumed
+    entry), and whether its first codeword lies below ``n_samples``."""
+    states = tm.entry_states_serial(tab)
+    assumed = torch.zeros_like(states[..., 0])
+    assumed[:, 1:] = tab[:, :-1, 0, 0]
+    return states[..., 0], assumed, states[..., 1] < n_samples
+
+
+def _check_entries(words, k, n_samples, tile_words):
+    """The model's entries against the oracle: a tile below ``n_samples``
+    holds the walk from its true entry phase, any other the walk from its
+    assumed one; the tiles walked again are those below ``n_samples``
+    whose assumed entry is wrong. Returns that count."""
+    tab = tm.decode_tables(words, k, tile_words)
+    true, assumed, below = _true_walk(tab, n_samples)
+    ent, rejoined = tm.decode_entries(words, k, n_samples, tile_words)
+    used = torch.where(below, true, assumed)
+    assert torch.equal(ent[..., 0], used)
+    assert torch.equal(ent[..., 1:], tm._step(tab, used).to(torch.int32))
+    assert rejoined == int(((true != assumed) & below).sum())
+    return rejoined
+
+
+@pytest.mark.parametrize("k", range(16))
+def test_decode_entries_are_the_tables_at_the_true_entry(k):
+    """B2's one join a tile, checked and repaired: every tile's entry is
+    the table's entry at the tile's true entry phase (tiles of 32 words
+    and of 3, which put escapes across tile boundaries), below the samples
+    asked for and past every stream's end; the decode equals the serial
+    walk."""
+    x, nv = _rows(400 + k)
+    words, nwords = _jax_words(x, nv, k)
+    w = _t(words[:, : int(nwords.max()) + 1])
+    for tile_words in (tm.TILE_WORDS, 3):
+        for n in (LENGTH, 1 << 30):
+            _check_entries(w, k, n, tile_words)
+    n = LENGTH + 60
+    want = np.asarray(_decode_segments_scan(jnp.asarray(words[:, : int(
+        nwords.max()) + 1]), n, JaxConfig(1 << k, LENGTH)))
+    np.testing.assert_array_equal(tm.decode_tiled(w, n, k, True, 3, 2).numpy(),
+                                  want)
+
+
+@pytest.mark.parametrize("tile_words,group", [(32, 32), (32, 2), (3, 2),
+                                              (1, 3)])
+def test_streams_that_never_join_are_repaired(tile_words, group):
+    """Where the true walk never meets phase 0's, every tile from the
+    third on is walked again (the first is walked from its true entry 0,
+    the second from the first's exit, which is true); the entries and the
+    decode stay exact, past the stream's end and its clamp included. Rows
+    dense with escapes and cut streams ride along."""
+    k, nw = 3, 200
+    rows = [never_joining(nw), never_joining(nw, 0x3FFFFFFF)]
+    x, nv = _rows(500)
+    esc, _ = _jax_words(x[3:5], nv[3:5], k)
+    words = np.zeros((4, nw + 1), np.uint32)
+    words[:2] = rows
+    words[2:, : min(nw + 1, esc.shape[1])] = esc[:, : nw + 1]
+    words[2:, -1] = 0
+    w = _t(words)
+    n_codewords = 1 + 8 * (nw - 1) + 7  # the first word's 5 + 27 bits
+    ntiles = -(-nw // tile_words)
+    for n in (n_codewords + 40, 1 << 30):
+        rejoined = _check_entries(w, k, n, tile_words)
+        assert rejoined >= 2 * (ntiles - 2)
+    assert _check_entries(w, k, 50, tile_words) < 2 * (ntiles - 2)
+    for cut in (w[:, :1], w[:, :2], w[:, :33], w):
+        for n in (n_codewords, n_codewords + 40):
+            got = tm.decode_tiled(cut.contiguous(), n, k, True, tile_words,
+                                  group)
+            want = np.asarray(jrice.unzigzag(jpack.unpack_bits(
+                jnp.asarray(cut.numpy().view(np.uint32)), n, k)))
+            want = np.cumsum(want.astype(np.int64), axis=1)
+            want = (((want + 0x8000) & 0xFFFF) - 0x8000).astype(np.int16)
+            np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("k", range(16))
@@ -212,7 +302,9 @@ def test_tiled_encode_matches_encode_segments_xla(k):
 
 def test_wrappers_take_the_segment_major_layout_on_the_cpu():
     """On CPU tensors the B1 / B2 wrappers run their serial oracles and
-    ``unpack_tables`` the model's first pass: all agree with the model."""
+    ``unpack_tables`` the walk from every entry phase: all agree with the
+    model, B2's decode also with the model's decode from the 25-phase
+    tables."""
     x, nv = _rows(9)
     xt, nvt = torch.from_numpy(x), torch.from_numpy(nv)
     words, nwords, nbits = pack_encode(xt, nvt, None, 4, True, 900)
@@ -222,4 +314,6 @@ def test_wrappers_take_the_segment_major_layout_on_the_cpu():
     w = words[:, : int(nwords.max()) + 1].contiguous()
     assert torch.equal(unpack_decode(w, LENGTH + 40, 4),
                        tm.decode_tiled(w, LENGTH + 40, 4))
+    assert torch.equal(unpack_decode(w, LENGTH + 40, 4),
+                       tm.decode_tiled(w, LENGTH + 40, 4, oracle=True))
     assert torch.equal(unpack_tables(w, 4), tm.decode_tables(w, 4))

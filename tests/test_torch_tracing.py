@@ -438,6 +438,35 @@ def test_wrappers_on_a_fake_card_count_launches_and_time_events(fake_card):
     assert tracing.snapshot() == snap  # resolved once, read again alike
 
 
+def test_tiles_rejoined_is_read_by_the_snapshot_alone(fake_card,
+                                                     monkeypatch):
+    """B2's wrapper hands the library a device counter and never reads it
+    back: with tracing off and ``Tensor.item`` refused, decodes run while
+    the stand-in library adds to the counter; ``snapshot()`` reads the sum
+    into ``counters["tiles_rejoined"]``, and ``clear()`` zeroes it."""
+    import ctypes
+
+    from deltarice_tpu_torch.ops.unpack_cuda import unpack_decode
+
+    class Counting(FakeLib):
+        def dr_unpack_decode(self, *args):
+            ctypes.c_int64.from_address(args[9]).value += 5
+            return 0
+
+    monkeypatch.setattr(_kernels, "library", lambda: Counting())
+    words = torch.zeros((4, 40), dtype=torch.int32)
+    with monkeypatch.context() as m:
+        m.setattr(torch.Tensor, "item", _refuse)
+        assert not tracing.on()
+        for _ in range(3):
+            unpack_decode(words, 100, 3)
+    assert tracing.counters["tiles_rejoined"] == 0  # nothing read yet
+    assert tracing.snapshot()["counters"]["tiles_rejoined"] == 15
+    assert tracing.counters["tiles_rejoined"] == 15
+    tracing.clear()
+    assert "tiles_rejoined" not in tracing.snapshot()["counters"]
+
+
 def test_no_device_event_outside_a_span_or_in_a_capture(fake_card,
                                                         monkeypatch):
     with tracing.recording():

@@ -12,6 +12,9 @@ drift thousands of rows apart, cut the slot axis off inside a block of 32
 slots, take several blocks, ask for more output slots than were staged and
 fewer than arrive, and take one element a lane where the columns do not
 split into 16-byte pieces.
+
+:func:`never_joining` makes B2's hardest words: a stream whose walk never
+meets the walk from phase 0, for the repair of B2's first pass.
 """
 
 import numpy as np
@@ -126,3 +129,15 @@ def planes(case, kind, scale=1):
         if kind == "u32":
             out += (tiled(vals[:, ::-1], 0),)
     return out, (vals, disp), sb, n_out, lanes
+
+
+def never_joining(nwords, lead=0x7FFFFFFF):
+    """(nwords + 1,) uint32 words at k = 3 whose walk never meets phase
+    0's: a first codeword of 5 bits (q = 1; ``lead`` 0x3FFFFFFF: q = 2, 6
+    bits), then all-ones words, which hold 4-bit codewords only, and one
+    zero pad word. The true walk starts codewords at bits 1 (2) mod 4 from
+    then on, phase 0's walk through any later tile at 0 mod 4."""
+    row = np.full(nwords + 1, 0xFFFFFFFF, np.uint32)
+    row[0] = lead
+    row[-1] = 0
+    return row
