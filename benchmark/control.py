@@ -1,10 +1,11 @@
 """The control of the check that decides ``correct``: the plain reference
 put in the program's place, computed one step below what the
 configuration states (lossless int16): its samples with the lowest bit
-dropped, as a 15-bit codec would keep them. It runs a cell's own traffic,
-at the cell's size, through ``run.run`` (the same set-up, window and
-comparison as a benchmark run), and prints each run's readings and its
-``correct``, which has to come out false.
+dropped, as a 15-bit codec would keep them, coded with the configuration's
+pre-filter. It runs a cell's own traffic, at the cell's size, through
+``run.run`` (the same set-up, window and comparison as a benchmark run),
+and prints each run's readings and its ``correct``, which has to come out
+false.
 
     python3 benchmark/control.py --workload <cell> --seeds 1,2,3 [--seconds 3]
 """
@@ -35,6 +36,7 @@ def lossy(x: torch.Tensor) -> torch.Tensor:
 class RiceConfig:
     m: int
     waveform_length: int
+    filt: tuple = reference.DELTA
 
     def max_words(self, n: int) -> int:
         return reference.max_words(n, self.m)
@@ -56,7 +58,7 @@ class Control:
 
     def encode_segments(self, x, nvalid, cfg, max_words, device=None):
         words, nwords = reference.encode_blocks(lossy(x), nvalid, cfg.m,
-                                                max_words)
+                                                max_words, cfg.filt)
         return words, nwords.to(torch.int32)
 
     def decode_segments(self, words, n_samples, cfg, device=None):

@@ -4,8 +4,8 @@ the same resident inputs. Run once the window has closed.
 
 * encode: each row's count, and its delivered stream's words below the
   reference's count (from the words up to the cap, or where the count
-  passed the cap from its full-width encode), against the reference:
-  ``rows_wrong``, limit 0. Words past a row's count are no part of its
+  passed the cap from its full-width encode), against the reference with
+  the configuration's pre-filter: ``rows_wrong``, limit 0. Words past a row's count are no part of its
   stream and are not compared.
 * decode: every decoded sample against the samples that the reference
   encoder coded (the stream's exact inverse): ``samples_wrong``, limit 0.
@@ -70,10 +70,11 @@ def run(work, kept: list) -> dict:
             continue
         outs = by_buffer.get(b, [])
         if not outs:
-            counts[b] = reference.counts_blocks(xb, work.nvalid, work.m)
+            counts[b] = reference.counts_blocks(xb, work.nvalid, work.m,
+                                                work.filt)
             continue
         ref_words, counts[b] = reference.encode_blocks(
-            xb, work.nvalid, work.m, work.full)
+            xb, work.nvalid, work.m, work.full, work.filt)
         for out in outs:
             n = encode_rows_wrong(out, ref_words, counts[b])
             wrong += n

@@ -1,7 +1,13 @@
 """The one traffic generator: resident batches made from the seed, a
 closed loop of codec calls with a fixed number of batches in flight, and
 the records the metrics and the check read. A traffic file names its
-``op`` and sets its numbers; a configuration file sets the sizes.
+``op`` and sets its numbers; a configuration file sets the sizes and the
+codec's settings, in the order of the reference filter's ``cd_values``
+``(M, L, n, *filter)``: ``rice_m`` (M), ``waveform_length`` (L) and
+``filter``, any lossless causal integer pre-filter, a list of int32 taps
+with ``|filter[0]| == 1`` (``[1, -1]`` is the delta filter). A filter
+whose leading tap is not +-1 has no exact inverse, and the decode check
+compares with the original samples: it is refused at set-up.
 
 A batch's latency runs from its issue on the host clock until the host
 sees its completion event, and includes what the host must still do for
@@ -74,20 +80,21 @@ class Device:
         return torch.empty(shape, dtype=dtype, pin_memory=self.cuda)
 
 
-def words_hint(x: torch.Tensor, m: int, length: int) -> int:
-    """A frozen copy of the arithmetic of the port's ``codec._words_hint``
-    (delta filter): the encode's word cap, from the largest per-row rate
-    of a subsample of 64 rows' first 4096 samples, plus 20 % and 64 words,
-    in buckets of 256, never above the worst case."""
+def words_hint(x: torch.Tensor, m: int, length: int,
+               filt=reference.DELTA) -> int:
+    """A frozen copy of the arithmetic of the port's ``codec._words_hint``:
+    the encode's word cap, from the largest per-row rate of a subsample of
+    64 rows' first 4096 samples, pre-filtered by ``filt`` through the
+    reference, plus 20 % and 64 words, in buckets of 256, never above the
+    worst case. For the delta filter it is the program's cap; for any other
+    filter the program takes the worst case, and this is the cap that a
+    caller sizing from its own data would pass."""
     k = reference.rice_k(m)
     full = reference.max_words(length, m)
     if x.shape[1] < 64:
         return full
     rows = x[:: max(1, x.shape[0] // 64)][:64]
-    seg = rows[:, : min(rows.shape[1], 4096)].to(torch.int64)
-    d = seg.clone()
-    d[:, 1:] -= seg[:, :-1]
-    d = ((d + 0x8000) & 0xFFFF) - 0x8000
+    d = reference.prefilter(rows[:, : min(rows.shape[1], 4096)], filt)
     u = (d << 1) ^ (d >> 63)
     q = u >> k
     bits = q.clamp(max=8) + 1 + k + torch.where(q >= 8, 16 - k, 0)
@@ -111,9 +118,11 @@ class Workload:
         self.rows = config["chunk_rows"] * config["chunks_per_batch"]
         self.length = config["waveform_length"]
         self.m = config["rice_m"]
-        if list(config["filter"]) != [1, -1]:
-            raise ValueError("the traffic runs the delta filter only")
-        self.cfg = program.RiceConfig(self.m, self.length)
+        self.filt = tuple(int(c) for c in config["filter"])
+        if not self.filt or abs(self.filt[0]) != 1:
+            raise ValueError(f"filter {list(self.filt)} is lossy: the "
+                             f"benchmark takes |filter[0]| == 1 only")
+        self.cfg = program.RiceConfig(self.m, self.length, filt=self.filt)
         self.in_flight = int(traffic["in_flight"])
         self.tracing = tracing
         self.reencoded = 0  # rows encoded again at the full width
@@ -126,7 +135,8 @@ class Workload:
                                  device=dev)
         ring = self.in_flight + 1
         if self.op == "encode":
-            self.cap = words_hint(self.x[0], self.m, self.length)
+            self.cap = words_hint(self.x[0], self.m, self.length,
+                                  filt=self.filt)
             self.full = self.cfg.max_words(self.length)
             self.counts_host = [self.dev.host((self.rows,), torch.int32)
                                 for _ in range(ring)]
@@ -136,14 +146,15 @@ class Workload:
             width = int(config["plane_words"])
             self.planes, self.ref_counts = [], []
             for b, xb in enumerate(self.x):
-                nw = reference.counts_blocks(xb, self.nvalid, self.m)
+                nw = reference.counts_blocks(xb, self.nvalid, self.m,
+                                             self.filt)
                 if int(nw.max()) + 1 > width:
                     raise ValueError(
                         f"a stream of {int(nw.max())} words (seed {seed}, "
                         f"batch {b}) leaves no pad word in the configuration's "
                         f"plane of {width}")
                 self.planes.append(reference.encode_blocks(
-                    xb, self.nvalid, self.m, width)[0])
+                    xb, self.nvalid, self.m, width, self.filt)[0])
                 self.ref_counts.append(nw)
 
     @property

@@ -4,7 +4,13 @@ never the program under test.
 
 Format (the reference filter's, HDF5 filter 32025):
 
-* delta filter: ``d[n] = x[n] - x[n-1]`` with ``x[-1] = 0``, wrapped to int16;
+* pre-filter, a causal integer FIR ``d[n] = sum_j x[n-j] * filt[j]`` with
+  ``x[n] = 0`` before a segment's first sample, wrapped to int16 (the
+  reference accumulates in a C ``short``; wrapping mod 2**16 commutes with
+  sums and products, so one wrap of the int64 sum is the same); the
+  default, the delta filter ``(1, -1)``, is ``d[n] = x[n] - x[n-1]``. Its
+  inverse, ``x[n] = (d[n] - sum_{j>=1} x[n-j] * filt[j]) / filt[0]`` on the
+  wrapped numerator, is exact only for ``|filt[0]| == 1``;
 * zigzag: ``u = 2d`` for ``d >= 0``, ``u = -2d - 1`` for ``d < 0``;
 * Rice code with ``M = 2**k``: ``q = u >> k``; below 8, ``q`` zeros, a one
   and the ``k`` low bits of ``u``; from 8 on, the escape: 8 zeros, a one
@@ -21,6 +27,7 @@ import torch
 
 ESCAPE_Q = 8
 ESCAPE_LEN = ESCAPE_Q + 1 + 16
+DELTA = (1, -1)
 
 
 def rice_k(m: int) -> int:
@@ -37,15 +44,28 @@ def max_words(length: int, m: int) -> int:
     return (length * max(qmax + 1 + k, ESCAPE_LEN if k < 13 else 0) + 31) // 32
 
 
-def codewords(x: torch.Tensor, nvalid: torch.Tensor, m: int):
+def wrap16(v):
+    """``v`` (int64) wrapped into the int16 range, kept as int64."""
+    return ((v + 0x8000) & 0xFFFF) - 0x8000
+
+
+def prefilter(x: torch.Tensor, filt=DELTA) -> torch.Tensor:
+    """The pre-filtered rows of ``x`` ((rows, L)), each row from zero
+    history, wrapped to int16 and kept as int64."""
+    xi = x.to(torch.int64)
+    d = xi * int(filt[0])
+    for j, c in enumerate(filt[1:], start=1):
+        if c and j < x.shape[1]:
+            d[:, j:].add_(xi[:, :-j], alpha=int(c))
+    return wrap16(d)
+
+
+def codewords(x: torch.Tensor, nvalid: torch.Tensor, m: int, filt=DELTA):
     """Per-sample (bit length, right-aligned bits), both int64, of the
-    delta-filtered rows of ``x`` (int16, (rows, L)); samples at or past a
+    pre-filtered rows of ``x`` (int16, (rows, L)); samples at or past a
     row's ``nvalid`` get length 0."""
     k = rice_k(m)
-    xi = x.to(torch.int64)
-    d = xi.clone()
-    d[:, 1:] -= xi[:, :-1]
-    d = ((d + 0x8000) & 0xFFFF) - 0x8000
+    d = prefilter(x, filt)
     u = torch.where(d >= 0, 2 * d, -2 * d - 1)
     q = u >> k
     esc = q >= ESCAPE_Q
@@ -57,17 +77,18 @@ def codewords(x: torch.Tensor, nvalid: torch.Tensor, m: int):
     return length, bits
 
 
-def stream_words(x: torch.Tensor, nvalid: torch.Tensor, m: int):
+def stream_words(x: torch.Tensor, nvalid: torch.Tensor, m: int, filt=DELTA):
     """Exact word count of each row's stream: (rows,) int64."""
-    length, _ = codewords(x, nvalid, m)
+    length, _ = codewords(x, nvalid, m, filt)
     return (length.sum(dim=1) + 31) // 32
 
 
-def encode(x: torch.Tensor, nvalid: torch.Tensor, m: int, width: int):
+def encode(x: torch.Tensor, nvalid: torch.Tensor, m: int, width: int,
+           filt=DELTA):
     """Encode each row into ``width`` words: (words (rows, width) int32
     holding the uint32 bit patterns, zero past each stream; nwords (rows,)
     int64, exact even where a stream is wider than ``width``)."""
-    length, bits = codewords(x, nvalid, m)
+    length, bits = codewords(x, nvalid, m, filt)
     end = torch.cumsum(length, dim=1)
     start = end - length
     nwords = (end[:, -1] + 31) // 32 if x.shape[1] else torch.zeros_like(end[:, 0])
@@ -88,7 +109,7 @@ def encode(x: torch.Tensor, nvalid: torch.Tensor, m: int, width: int):
 
 
 def encode_blocks(x: torch.Tensor, nvalid: torch.Tensor, m: int, width: int,
-                  samples_per_block: int = 1 << 24):
+                  filt=DELTA, samples_per_block: int = 1 << 24):
     """:func:`encode` over blocks of rows, so that a batch of any size fits
     beside the program's buffers."""
     rows = max(1, samples_per_block // max(1, x.shape[1]))
@@ -96,31 +117,38 @@ def encode_blocks(x: torch.Tensor, nvalid: torch.Tensor, m: int, width: int,
     nwords = torch.empty(x.shape[0], dtype=torch.int64, device=x.device)
     for r in range(0, x.shape[0], rows):
         words[r:r + rows], nwords[r:r + rows] = encode(
-            x[r:r + rows], nvalid[r:r + rows], m, width)
+            x[r:r + rows], nvalid[r:r + rows], m, width, filt)
     return words, nwords
 
 
-def counts_blocks(x: torch.Tensor, nvalid: torch.Tensor, m: int,
+def counts_blocks(x: torch.Tensor, nvalid: torch.Tensor, m: int, filt=DELTA,
                   samples_per_block: int = 1 << 24) -> torch.Tensor:
     """:func:`stream_words` over blocks of rows."""
     rows = max(1, samples_per_block // max(1, x.shape[1]))
-    return torch.cat([stream_words(x[r:r + rows], nvalid[r:r + rows], m)
+    return torch.cat([stream_words(x[r:r + rows], nvalid[r:r + rows], m, filt)
                       for r in range(0, x.shape[0], rows)])
 
 
-def decode(words: np.ndarray, n_samples: int, m: int) -> np.ndarray:
+def decode(words: np.ndarray, n_samples: int, m: int,
+           filt=DELTA) -> np.ndarray:
     """Serial decode of each row's stream (uint32 (rows, W)) into
     ``n_samples`` int16 samples: a bit cursor walked one codeword at a
-    time, the rows in step. For small inputs (the tests)."""
+    time, the rows in step, and the pre-filter inverted sample by sample.
+    For small inputs (the tests); lossless filters only."""
     k = rice_k(m)
+    f0 = int(filt[0])
+    if abs(f0) != 1:
+        raise ValueError(f"filter {tuple(filt)} has no exact inverse: "
+                         f"|filt[0]| must be 1")
+    rev = np.array([int(c) for c in filt[:0:-1]], np.int64)  # c_nh .. c_1
+    nh = rev.size
     w = np.asarray(words, dtype=np.uint64)
     rows = w.shape[0]
     # a 64-bit window from the cursor's word on; one zero word past the end
     w = np.concatenate([w, np.zeros((rows, 2), np.uint64)], axis=1)
     r = np.arange(rows)
     bit = np.zeros(rows, np.int64)
-    prev = np.zeros(rows, np.int64)
-    out = np.empty((rows, n_samples), np.int16)
+    out = np.zeros((rows, nh + n_samples), np.int64)  # sample i at nh + i
     for i in range(n_samples):
         wi = bit >> 5
         win = ((w[r, wi] << np.uint64(32)) | w[r, wi + 1]) << (bit & 31).astype(np.uint64)
@@ -132,10 +160,10 @@ def decode(words: np.ndarray, n_samples: int, m: int) -> np.ndarray:
         u_rice = (q << k) | ((win >> shift) & np.uint64((1 << k) - 1)).astype(np.int64)
         u = np.where(esc, u_esc.astype(np.int64), u_rice)
         d = np.where(u & 1, -((u + 1) >> 1), u >> 1)
-        prev = ((prev + d + 0x8000) & 0xFFFF) - 0x8000
-        out[:, i] = prev
+        num = wrap16(d - out[:, i:i + nh] @ rev)
+        out[:, nh + i] = wrap16(num * f0)
         bit += np.where(esc, ESCAPE_LEN, q + 1 + k)
-    return out
+    return out[:, nh:].astype(np.int16)
 
 
 def _leading_zeros(win: np.ndarray) -> np.ndarray:
@@ -146,7 +174,8 @@ def _leading_zeros(win: np.ndarray) -> np.ndarray:
     return q
 
 
-def frame(chunk: np.ndarray, m: int, waveform_length: int) -> bytes:
+def frame(chunk: np.ndarray, m: int, waveform_length: int,
+          filt=DELTA) -> bytes:
     """The framed stream of one chunk (1-D int16), as the reference filter
     writes it."""
     total = chunk.shape[0]
@@ -159,8 +188,8 @@ def frame(chunk: np.ndarray, m: int, waveform_length: int) -> bytes:
         nvalid[-1] = total % length
     x = torch.from_numpy(rows)
     nv = torch.from_numpy(nvalid)
-    width = int(stream_words(x, nv, m).max()) if nseg else 0
-    words, nwords = encode(x, nv, m, width)
+    width = int(stream_words(x, nv, m, filt).max()) if nseg else 0
+    words, nwords = encode(x, nv, m, width, filt)
     out = [np.array([total], "<u4")]
     for s in range(nseg):
         out.append(np.array([int(nwords[s])], "<u4"))

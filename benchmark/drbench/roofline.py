@@ -1,7 +1,9 @@
 """The bytes a codec call must move, counted from the problem, and the
 card's peak. What an implementation also writes (the zeroed width of its
-word plane, its scratch, re-encodes) is its own: it counts in the time and
-never in these bytes."""
+word plane, its scratch, re-encodes, and the passes of a pre-filter other
+than the delta: its forward filter before the encode, its inverse after
+the decode) is its own: it counts in the time and never in these bytes,
+which are the same for every filter."""
 
 from __future__ import annotations
 

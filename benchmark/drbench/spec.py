@@ -1,7 +1,14 @@
 """Finds a cell's parts by name: its entry in ``BENCHMARK.json``, its
 configuration file, its traffic file under ``traffic/`` and a reader under
 ``metrics/`` for each of its metrics. A cell, a traffic mix or a metric is
-added by adding files and entries; nothing here names one."""
+added by adding files and entries; nothing here names one.
+
+A configuration file states the deployment's codec settings as the
+reference filter's ``cd_values`` order them, ``(M, L, n, *filter)``:
+``rice_m``, ``waveform_length`` and ``filter``. The filter may be any
+lossless causal integer filter, int32 taps with ``|filter[0]| == 1``; the
+traffic, the reference, the word cap, the check and the control all
+follow it."""
 
 from __future__ import annotations
 

@@ -3,8 +3,10 @@ reference on 15-bit samples, in the program's place), and a run whose
 timed path is broken underneath, once for each fault a one-card codec
 cell can have: a call that hands back its last answer unchanged, half of
 the batch left out, and one answer altered where it is produced. A cell on
-one card has no exchange between chips to leave out. CPU, at a size a
-test run holds; the harness's look for a card is skipped.
+one card has no exchange between chips to leave out. The same holds for a
+configuration with a pre-filter other than the delta, which also fails a
+program that runs the delta filter in its place. CPU, at a size a test run
+holds; the harness's look for a card is skipped.
 
     python -m pytest benchmark/tests -q
 """
@@ -26,11 +28,18 @@ from drbench import spec  # noqa: E402
 CELLS = [w["name"] for w in spec.load_benchmark()["workloads"]]
 
 
-def small(name: str) -> spec.Cell:
+#: the generic-filter configurations: Nab's with these filters
+GENERIC = [("nab.vram_encode", (1, 0, -1)), ("nab.vram_decode", (1, 0, -1)),
+           ("nab.vram_encode", (1, -2, 1)), ("nab.vram_decode", (1, -2, 1))]
+
+
+def small(name: str, filt=None) -> spec.Cell:
     cell = spec.cell(name)
     length = 2000 if cell.traffic["op"] == "encode" else 600
     cell.config = dict(cell.config, chunk_rows=4, chunks_per_batch=1,
                        waveform_length=length)
+    if filt is not None:
+        cell.config["filter"] = list(filt)
     return cell
 
 
@@ -65,9 +74,28 @@ class Broken:
         return self._break(("decode", tuple(words.shape)), (out,))[0]
 
 
-@pytest.mark.parametrize("name", CELLS)
-def test_the_control_fails(name):
-    cell, seed = small(name), 2**31 + 21
+class DeltaInstead:
+    """The program, handed the delta filter whatever the configuration
+    states."""
+
+    def __init__(self, program):
+        self.prog = program
+
+    def RiceConfig(self, m, waveform_length, filt=None):
+        return self.prog.RiceConfig(m, waveform_length)
+
+    def encode_segments(self, *args, **kwargs):
+        return self.prog.encode_segments(*args, **kwargs)
+
+    def decode_segments(self, *args, **kwargs):
+        return self.prog.decode_segments(*args, **kwargs)
+
+
+@pytest.mark.parametrize(
+    "name,filt", [pytest.param(c, None, id=c) for c in CELLS]
+    + [pytest.param(c, f, id=f"{c}-{f}") for c, f in GENERIC])
+def test_the_control_fails(name, filt):
+    cell, seed = small(name, filt), 2**31 + 21
     res = run.run(cell, seed, 0.2, False, "cpu",
                   control.Control(cell, seed, "cpu"), 0.0)
     checks = res["checks"]
@@ -82,10 +110,22 @@ def test_the_control_fails(name):
 def test_a_broken_timed_path_is_not_correct(name, fault):
     import deltarice_tpu_torch as program
 
-    res = run.run(small(name), 2**31 + 33, 0.2, False, "cpu",
+    # a window long enough for calls on both resident batches even on a
+    # loaded CPU: a call handed the last answer of the same batch is right
+    res = run.run(small(name), 2**31 + 33, 1.0, False, "cpu",
                   Broken(program, fault), 0.0)
     assert res["correct"] is False
     assert res["failed"] >= 1
+
+
+@pytest.mark.parametrize("name", ["nab.vram_encode", "nab.vram_decode"])
+def test_the_delta_filter_in_place_of_the_stated_one_is_not_correct(name):
+    import deltarice_tpu_torch as program
+
+    res = run.run(small(name, (1, 0, -1)), 2**31 + 35, 0.2, False, "cpu",
+                  DeltaInstead(program), 0.0)
+    assert res["correct"] is False
+    assert res["failed"] == res["checks"]["calls_checked"]["value"] >= 1
 
 
 def test_the_control_is_lossy_by_one_bit():
