@@ -100,7 +100,8 @@ def encode_segments_bits(x, nvalid, cfg: RiceConfig, max_words: int,
         if not cfg.is_delta and p0 is not None:
             raise ValueError("prev0 is only supported for the delta filter")
         if not cfg.is_delta and not prefiltered:
-            with tracing.span("prefilter"):
+            tracing.counters["rows_prefiltered"] += x.shape[0]
+            with tracing.span("prefilter"), tracing.device("prefilter", x):
                 x = prefilter_encode(x, cfg.filt)
         return pack_encode(x, nv, p0, cfg.k, diff, max_words)
 
@@ -123,8 +124,7 @@ def _decode_device_split(words: torch.Tensor, counts, n_samples: int,
         out, bad = unpack_decode_split(words, counts, n_samples, cfg.k,
                                        cfg.is_delta, parts, nvalid)
     if not cfg.is_delta:
-        with tracing.span("prefilter_inverse"):
-            out = prefilter_decode(out, cfg.filt)
+        out = _prefilter_inverse(out, cfg)
     return out, bad
 
 
@@ -189,9 +189,17 @@ def _decode_dispatch(words, n_samples: int, cfg: RiceConfig, device,
                                          nvalid))
     out = unpack_decode(w, n_samples, cfg.k, cfg.is_delta)
     if not cfg.is_delta:
-        with tracing.span("prefilter_inverse"):
-            out = prefilter_decode(out, cfg.filt)
+        out = _prefilter_inverse(out, cfg)
     return w, out, None
+
+
+def _prefilter_inverse(d: torch.Tensor, cfg: RiceConfig) -> torch.Tensor:
+    """The generic pre-filter's inverse of decoded rows, counted, spanned
+    and timed on the card."""
+    tracing.counters["rows_prefilter_inverted"] += d.shape[0]
+    with tracing.span("prefilter_inverse"), \
+            tracing.device("prefilter_inverse", d):
+        return prefilter_decode(d, cfg.filt)
 
 
 def _on(a, device, dtype) -> torch.Tensor:
@@ -392,8 +400,11 @@ def _encode_split_rows(padded2d: np.ndarray, nvalid_rows: np.ndarray,
         with tracing.span("split_layout"):
             xs, nv, _p0, ls = _split_layout(padded2d, nvalid_rows, parts,
                                             halo)
+        tracing.counters["rows_prefiltered"] += xs.shape[0]
         with tracing.span("prefilter"):
-            d = prefilter_encode(_on(xs, device, torch.int16), cfg.filt)
+            xs = _on(xs, device, torch.int16)
+            with tracing.device("prefilter", xs):
+                d = prefilter_encode(xs, cfg.filt)
         w, nw, nb = encode_segments_bits(d[:, halo:], nv, cfg,
                                          cfg.max_words(ls), prefiltered=True,
                                          device=device)

@@ -27,7 +27,10 @@ With it on:
 
 :data:`counters` are always on: rows encoded and encoded again past the
 word cap, rows decoded and decoded again after the split decode flagged
-them, chunks re-encoded by verification, calls dropped from the ring, and
+them, ``rows_prefiltered`` and ``rows_prefilter_inverted``, the rows
+(sub-blocks of a split segment each) through the generic pre-filter's
+forward FIR and its inverse (never the delta, which B1 and B2 fuse),
+chunks re-encoded by verification, calls dropped from the ring, and
 ``tiles_rejoined``, the tiles that B2's check walked again from their
 true entry phase (``csrc/unpack.cu``). That one the kernels add on the
 card, to a device scalar that no call reads back: :func:`snapshot` reads
@@ -184,16 +187,19 @@ class _Device:
         return False
 
 
-def device(name: str):
+def device(name: str, where: torch.Tensor | None = None):
     """Context manager that times the device work queued inside it on the
     current stream with two CUDA events, attached to the innermost open
-    span; the shared null context with tracing off, outside any span or
-    during a CUDA graph capture. Use it around work on a card only."""
+    span; the shared null context with tracing off, outside any span,
+    during a CUDA graph capture, or where ``where``, a tensor the work
+    reads, is not on a card. Use it around work on a card only, or pass
+    ``where``."""
     if not (_recording or _profiler._is_profiler_enabled):
         return _NULL
     t0 = time.perf_counter_ns()
     stack = _stack()
-    if not stack or torch.cuda.is_current_stream_capturing():
+    if (not stack or (where is not None and not where.is_cuda)
+            or torch.cuda.is_current_stream_capturing()):
         return _NULL
     return _Device(name, stack[-1], t0)
 

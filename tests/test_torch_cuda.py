@@ -52,6 +52,7 @@ from deltarice_tpu_torch.ops.split_decode_cuda import (
 from deltarice_tpu_torch.ops.tiled_model import decode_entries, decode_tiled
 from deltarice_tpu_torch.ops.unpack_cuda import unpack_decode, unpack_tables
 import hostile_cases as hc
+import plain_codec
 from prefilter_cases import EDGES, GRID, blocked_grid, grid_filter, samples
 from tiled_cases import CASES as TILED_CASES, KINDS as TILED_KINDS, planes
 from tiled_cases import never_joining
@@ -1623,3 +1624,76 @@ def test_trace_events_agree_with_the_profiler(cuda, op):
                     and not ev.name().startswith("Memcpy"))
     assert kernel_ms > 0
     assert sum(events) == pytest.approx(kernel_ms, rel=0.05)
+
+
+#: the nab_opt deployment: Nab with the optimizer's 3-tap pre-filter
+NAB_OPT = dt.RiceConfig(8, 7000, filt=(1, 0, -1))
+
+
+def _nab_opt_batch(rows=2000, seed=23):
+    """Nab-profile rows on the card, a few cut short, one of noise."""
+    x = _nab(rows, seed=seed)
+    x[7] = np.random.default_rng(seed).integers(-32768, 32768, 7000)
+    nv = np.full(rows, 7000, np.int32)
+    nv[[3, 11, 1999]] = (4321, 1, 0)
+    return (torch.from_numpy(x).cuda(), torch.from_numpy(nv).cuda())
+
+
+def test_prefilter_events_and_counters_on_the_card(cuda):
+    """Each generic-filter call records its ``prefilter`` /
+    ``prefilter_inverse`` event pair inside its span, read as positive
+    ms, and counts its rows once."""
+    from deltarice_tpu_torch import tracing
+
+    x, nv = _nab_opt_batch()
+    rows, full = x.shape[0], NAB_OPT.max_words(7000)
+    words, _ = dt.encode_segments(x, nv, NAB_OPT, full, device="cuda")
+    dt.decode_segments(words, 7000, NAB_OPT, device="cuda")
+    torch.cuda.synchronize()
+    tracing.clear()
+    with tracing.recording():
+        words, _ = dt.encode_segments(x, nv, NAB_OPT, full, device="cuda")
+        out = dt.decode_segments(words, 7000, NAB_OPT, device="cuda")
+    snap = tracing.snapshot()
+    for op, span, event in (("encode", "dr.prefilter", "prefilter"),
+                            ("decode", "dr.prefilter_inverse",
+                             "prefilter_inverse")):
+        assert tracing.event_ms(snap, tracing.ENTRY[op], rows, event) > 0
+        assert [s["name"] for s in snap["spans"]
+                if event in s["device_ms"]] == [span]
+    assert snap["counters"]["rows_prefiltered"] == rows
+    assert snap["counters"]["rows_prefilter_inverted"] == rows
+    full_rows = (nv == 7000).cpu()
+    assert torch.equal(out.cpu()[full_rows], x.cpu()[full_rows])
+    tracing.clear()
+
+
+def test_nab_opt_on_the_card_is_the_plain_codec(cuda):
+    """A 2000 x 7000 batch of the nab_opt deployment: the card's encode at
+    the deployment's word cap and at full width, and its decode of a plane
+    that the plain codec made, equal the plain codec of
+    ``tests/plain_codec.py``."""
+    x, nv = _nab_opt_batch()
+    full = NAB_OPT.max_words(7000)
+    ref_words, ref_counts = plain_codec.encode(x, nv, 8, full, (1, 0, -1))
+    cap = 1536
+    words, counts = dt.encode_segments(x, nv, NAB_OPT, cap, device="cuda")
+    assert torch.equal(counts.to(torch.int64), ref_counts)
+    fit = counts <= cap
+    assert int((~fit).sum()) >= 1  # the noise row
+    assert torch.equal(words[fit], ref_words[fit, :cap])
+    words, counts = dt.encode_segments(x, nv, NAB_OPT, full, device="cuda")
+    assert torch.equal(words, ref_words)
+
+    width = -(-(int(ref_counts.max()) + 1) // 256) * 256
+    plane, _ = plain_codec.encode(x, nv, 8, width, (1, 0, -1))
+    out = dt.decode_segments(plane, 7000, NAB_OPT, device="cuda").cpu().numpy()
+    plain = plain_codec.decode(plane.cpu().numpy().view(np.uint32), 7000, 8,
+                               (1, 0, -1))
+    xs, nvs = x.cpu().numpy(), nv.cpu().numpy()
+    full_rows = nvs == 7000
+    np.testing.assert_array_equal(out[full_rows], xs[full_rows])
+    np.testing.assert_array_equal(plain[full_rows], xs[full_rows])
+    for i in np.nonzero(~full_rows)[0]:
+        np.testing.assert_array_equal(out[i, :nvs[i]], xs[i, :nvs[i]])
+        np.testing.assert_array_equal(plain[i, :nvs[i]], xs[i, :nvs[i]])
