@@ -109,8 +109,9 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    ``tools.scaling_bench`` over NCCL on the cards present, 64 Nab chunks of
    (32, 7000) a rank. No window may launch B4, and B1, B2, B3, B5, B6 and
    B9 must each launch;
-13. drives the generic-filter path, whose decode ends in the generic
-   pre-filter inverse's kernels (``iir_decode``, ``csrc/prefilter.cu``,
+13. drives the generic-filter path, whose encode starts with the forward
+   filter's kernel (``fir_encode``, ``csrc/prefilter.cu``) and whose
+   decode ends in the generic pre-filter inverse's kernels (``iir_decode``, ``csrc/prefilter.cu``,
    the counterpart of the JAX package's ``lax.scan``: the blocked scan for
    lossless filters of up to 8 history taps, the serial walk for the
    rest), every launch in a counted window: ``compress_batch`` /
@@ -124,8 +125,9 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    ``dr_compress``, every lossless decode the input and the lossy one
    native ``dr_decompress``'s output, every decode and read must launch
    ``iir_decode`` by the path its filter calls for (the lossy one serial,
-   the others blocked), and a spy on the plain version
-   (``ops/prefilter.py::iir_decode_plain``) must see no CUDA tensor. Then
+   the others blocked), every encode and write ``fir_encode``, and spies
+   on the plain versions (``ops/prefilter.py::iir_decode_plain``,
+   ``prefilter_encode_plain``) must see no CUDA tensor. Then
    the kernels against their plain version (on a CPU copy), exactly, each
    call by the path ``ops/prefilter_model.py::plan`` gives: the blocked
    scan at Nab (2048, 7000) with the optimizer's filter and at one NOPTREX
@@ -139,7 +141,11 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    into passes A, B and C by a ``torch.profiler`` repeat, beside the
    serial walk on the same inputs (``iir_decode_serial``, the design the
    blocked scan replaced) and the plain version on the card; and the
-   inverse's share of the NOPTREX generic decode;
+   inverse's share of the NOPTREX generic decode. Last, ``fir_encode`` on
+   the ``nab_opt`` deployment's batch (``FIR_ROWS`` x 7000, (1, 0, -1))
+   against its plain version on the card, timed in a CUDA graph beside it
+   and on a copy 2 bytes off a 16-byte boundary: its row of the
+   ``kernels`` line;
 14. feeds the port hostile streams at the full chunk shapes of Nab, nEDM
    and NOPTREX (``tests/hostile_cases.py``, imported by path, the corpus
    ``tests/test_torch_robustness.py`` holds against the JAX package on the
@@ -184,7 +190,7 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    d: ``compress_batch`` over the cap at every geometry), with every
    kernel input an allocation of its own. Every output must equal its
    reference and hash alike in both children, each child must launch all
-   13 wrappers and the inverse's three paths, and a child that dies is
+   14 wrappers and the inverse's three paths, and a child that dies is
    named by the case it left unfinished and its CUDA error. A third child,
    ``--guard exact --fill 195`` over cases b and c, rounds each buffer's
    size up to 4 bytes only, so its last byte abuts the unmapped granule
@@ -219,7 +225,7 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    site), then ``chip_smoke.py --smem-check SEED --fill N`` for seed 0
    under fills 0xA5 and 0x5A and seeds 1 and 2 (perturbed), together, each
    over every case of phase 15: every output must equal its reference and
-   hash as in phase 15's default build, each child must launch all 13
+   hash as in phase 15's default build, each child must launch all 14
    wrappers and the inverse's three paths, and a child that dies is named
    by its case and the bounds record its kernel left (file:line, array,
    index, extent, block, thread);
@@ -295,6 +301,10 @@ IIR_EDGES = ((65536, -1), (65536,), (-1,), (-32768, 5, -7), (65535, 3))
 IIR_LONG_TAPS = (1100, 2500)
 # the blocked scan's passes by kernel name, for the profiler's split
 IIR_PASSES = {"A": "exit_kernel", "B": "carry_kernel", "C": "walk_kernel"}
+# the forward filter's row: the rows of the nab_opt deployment's batch (the
+# phase-4 Nab rows repeated) and its filter, the optimizer's 3-tap choice
+FIR_ROWS = 20000
+FIR_FILTER = (1, 0, -1)
 FUZZ_CASES = 60  # phase 12's differential fuzz against the native codec
 # phase 14, hostile streams at the full chunk shapes: single-bit flips of
 # each geometry's stream (NOPTREX's batch must stay within the split
@@ -323,7 +333,7 @@ GUARD_WRAPPERS = {
     "concentrate_tiled_cuda": ("concentrate_tiled", "concentrate_tiled_vd"),
     "split_decode_cuda": ("split_decode", "split_decode_passes"),
     "transpose_cuda": ("transpose2d",),
-    "prefilter_cuda": ("iir_decode", "iir_decode_serial"),
+    "prefilter_cuda": ("iir_decode", "iir_decode_serial", "fir_encode"),
 }
 GUARD_KERNELS = tuple(n for names in GUARD_WRAPPERS.values() for n in names)
 IIR_PATHS = ("iir_decode.blocked", "iir_decode.one_walk", "iir_decode.serial")
@@ -344,6 +354,9 @@ NO_LIBRARY = {
     "split_decode": "no PyTorch call decodes a Rice stream",
     "iir_decode": "no PyTorch call runs a recurrence with int16 wrap and "
                   "truncating division",
+    "fir_encode": "no PyTorch call filters int16 with int16 wrap: a float64 "
+                  "conv1d is exact here but needs a wrap after it, two "
+                  "calls",
     "concentrate_packed": "a scatter needs the destination plane slot - disp "
                           "and a dump slot for dead slots built first",
 }
@@ -1855,9 +1868,11 @@ def phase_measurement_tools(card: str) -> dict:
 
 def phase_generic(data: dict, nab_choice, card: str) -> tuple[dict, list]:
     """Phase 13, the generic-filter path: the codec and ``h5`` with filters
-    other than the delta, whose decode ends in the generic inverse's kernel
-    (``iir_decode``); then the kernel against its plain version and timed.
-    Returns the launches of each counted window and the kernel's rows."""
+    other than the delta, whose encode starts with the forward filter's
+    kernel (``fir_encode``) and whose decode ends in the generic inverse's
+    (``iir_decode``); then both kernels against their plain versions and
+    timed. Returns the launches of each counted window and the kernels'
+    rows."""
     import deltarice_tpu_torch as dt
     from deltarice_tpu_torch.ops import prefilter
     from deltarice_tpu_torch.ops.prefilter_model import blocked
@@ -1867,7 +1882,9 @@ def phase_generic(data: dict, nab_choice, card: str) -> tuple[dict, list]:
     check(nab_filt != (1, -1), "phase 9's optimize chose the delta filter")
     nab = data["nab"]
     windows = {}
-    with captured([(prefilter, "iir_decode_plain")]) as (plain_calls, _ms):
+    with captured([(prefilter, "iir_decode_plain"),
+                   (prefilter, "prefilter_encode_plain")]) as (plain_calls,
+                                                              _ms):
         for label, cfg in (
                 (f"nab optimize {list(nab_filt)}",
                  dt.RiceConfig(m, LENGTH, nab_filt)),
@@ -1887,14 +1904,17 @@ def phase_generic(data: dict, nab_choice, card: str) -> tuple[dict, list]:
     for kernel in ("split_decode", "concentrate_wide16"):
         check(windows[f"{label} decode(split on)"].get(kernel, 0) > 0,
               f"phase 13 {label} decode(split on) never launched {kernel}")
-    on_card = [a for args in plain_calls["iir_decode_plain"] for a in args
-               if isinstance(a, torch.Tensor) and a.is_cuda]
-    check(not on_card, f"the plain inverse ran on {len(on_card)} CUDA "
-          f"tensors in the counted windows")
+    for plain in ("iir_decode_plain", "prefilter_encode_plain"):
+        on_card = [a for args in plain_calls[plain] for a in args
+                   if isinstance(a, torch.Tensor) and a.is_cuda]
+        check(not on_card, f"{plain} ran on {len(on_card)} CUDA tensors in "
+              f"the counted windows")
     for window, n in windows.items():
-        check(n.get("iir_decode", 0) > 0 or "encode" in window
-              or "write" in window, f"phase 13 {window} never launched "
-              f"iir_decode")
+        encodes = "encode" in window or "write" in window
+        check(n.get("fir_encode", 0) > 0 or not encodes, f"phase 13 {window} "
+              f"never launched fir_encode")
+        check(n.get("iir_decode", 0) > 0 or encodes, f"phase 13 {window} "
+              f"never launched iir_decode")
         check(n.get("transpose2d", 0) == 0, f"phase 13 {window} launched "
               f"transpose2d")
         # the path of each call follows the filter alone: the lossless
@@ -1906,14 +1926,63 @@ def phase_generic(data: dict, nab_choice, card: str) -> tuple[dict, list]:
         took = {k: v for k, v in n.items() if k.startswith("iir_decode.")}
         check(set(took) <= {f"iir_decode.{want}"}, f"phase 13 {window} took "
               f"{took}, not iir_decode.{want}")
-    print(f"[13 generic] every counted decode and read launched iir_decode, "
-          f"the lossy filter's by the serial walk and every other by the "
-          f"blocked scan; the plain inverse saw no CUDA tensor "
-          f"({len(plain_calls['iir_decode_plain'])} calls)")
+    print(f"[13 generic] every counted encode and write launched "
+          f"fir_encode, every counted decode and read iir_decode, the lossy "
+          f"filter's by the serial walk and every other by the blocked scan; "
+          f"the plain versions saw no CUDA tensor "
+          f"({len(plain_calls['prefilter_encode_plain'])} and "
+          f"{len(plain_calls['iir_decode_plain'])} calls)")
     decode = {"ms": noptrex_times["decode(split off)"],
               "launches": noptrex_windows[f"{label} decode(split off)"]
               ["iir_decode"]}
-    return windows, iir_rows(nab, noptrex, nab_filt, card, decode)
+    return windows, (iir_rows(nab, noptrex, nab_filt, card, decode)
+                     + fir_rows(nab, card))
+
+
+def fir_rows(nab, card) -> list[dict]:
+    """The forward filter's kernel on the ``nab_opt`` deployment's batch,
+    ``FIR_ROWS`` x 7000 with ``FIR_FILTER`` (the phase-4 Nab rows
+    repeated): equal to its plain version (the int64 torch passes, on the
+    card), timed in a CUDA graph beside that plain version, and timed again
+    on a copy of the batch 2 bytes off a 16-byte boundary, whose loads all
+    move element by element. Returns its row."""
+    from deltarice_tpu_torch.ops.prefilter import prefilter_encode_plain
+    from deltarice_tpu_torch.ops.prefilter_cuda import fir_encode
+    from deltarice_tpu_torch.utils.profiling import graph_ms
+
+    xc = torch.from_numpy(nab).cuda()
+    x = xc.repeat(-(-FIR_ROWS // xc.shape[0]), 1)[:FIR_ROWS].contiguous()
+    del xc
+    got = fir_encode(x, FIR_FILTER)
+    want = prefilter_encode_plain(x, FIR_FILTER)
+    err = max_err(got, want)
+    check(err == 0, f"fir_encode {tuple(x.shape)} disagrees with its plain "
+          f"version by {err}")
+    buf = torch.empty(x.numel() + 1, dtype=torch.int16, device="cuda")
+    buf[1:] = x.reshape(-1)
+    xm = buf[1:].view(x.shape)
+    check(xm.data_ptr() % 16 == 2, "the misaligned copy is aligned")
+    check(torch.equal(fir_encode(xm, FIR_FILTER), got),
+          "fir_encode on a view off 16 bytes differs")
+    del want
+    ms = graph_ms([lambda: fir_encode(x, FIR_FILTER)])
+    misaligned = graph_ms([lambda: fir_encode(xm, FIR_FILTER)])
+    plain_ms = cuda_ms(lambda: prefilter_encode_plain(x, FIR_FILTER), 3)
+    moved = 2 * nbytes(x)  # each sample read once and written once
+    row = kernel_row("fir_encode", "deltarice_tpu_torch/csrc/prefilter.cu",
+                     "deltarice_tpu/ops/prefilter.py:47", err, ms, plain_ms,
+                     list(x.shape), moved, None, "nab_opt")
+    row.update({"filter": list(FIR_FILTER), "ms_by": "cuda graph",
+                "misaligned_ms": misaligned,
+                "misaligned": "x 2 bytes off 16, out aligned: every load "
+                              "element by element"})
+    print(f"[13 generic] fir_encode {tuple(x.shape)} filter "
+          f"{list(FIR_FILTER)}: equals its plain version; {ms:.4f} ms in a "
+          f"CUDA graph, bound {bound_ms(moved):.4f} ms ({moved} B over 3.35 "
+          f"TB/s; {100 * bound_ms(moved) / ms:.1f} %), the plain version on "
+          f"the card {plain_ms:.4f} ms; the input 2 bytes off 16 "
+          f"{misaligned:.4f} ms; {card}")
+    return [row]
 
 
 def generic_batch(label, x_np, cfg, splits) -> tuple[dict, dict]:
@@ -2771,7 +2840,8 @@ def ragged_cases(tc) -> list[GuardCase]:
     from deltarice_tpu_torch.ops.concentrate_tiled_cuda import (
         concentrate_tiled, concentrate_tiled_vd)
     from deltarice_tpu_torch.ops.pack_cuda import pack_encode
-    from deltarice_tpu_torch.ops.prefilter import iir_decode_plain
+    from deltarice_tpu_torch.ops.prefilter import (
+        iir_decode_plain, prefilter_encode_plain)
     from deltarice_tpu_torch.ops.prefilter_model import plan
     from deltarice_tpu_torch.ops.split_decode import _local_width
     from deltarice_tpu_torch.ops.split_decode_cuda import (
@@ -2933,6 +3003,24 @@ def ragged_cases(tc) -> list[GuardCase]:
         "c.iir_decode_serial", ("iir_decode_serial",),
         lambda t: (prefilter_cuda.iir_decode_serial(t, (1, 0, -1))
                    if t.is_cuda else iir_decode_plain(t, (1, 0, -1))), [d]))
+    # the forward filter: a short last vector (n % 8), one sample, a row
+    # shorter than its taps, several blocks of 8192 samples, taps in
+    # registers (3, 8) and read from global memory (17, 1100, 40000)
+    taps_40000 = (1,) + tuple(int(t) for t in rng.integers(-3, 4, 39999))
+    for label, filt, shape in (
+            ("scalar", (1, 0, -1), (3, 1001)),
+            ("one", (1, 0, -1), (1, 1)),
+            ("short_rows", (1, -2, 1) + (3,) * 5, (33, 7)),
+            ("blocks", (1, 0, -1), (5, 7001)),
+            ("taps17", (1, -1) + (2, -3) * 7 + (1,), (4, 1000)),
+            ("taps1100", taps_1100, (2, 1203)),
+            ("taps40000", taps_40000, (2, 300))):
+        x = torch.from_numpy(rng.integers(-32768, 32768, shape)
+                             .astype(np.int16))
+        cases.append(kernel_case(
+            f"c.fir_encode.{label}", ("fir_encode",),
+            lambda t, f=filt: (prefilter_cuda.fir_encode(t, f) if t.is_cuda
+                               else prefilter_encode_plain(t, f)), [x]))
     return cases
 
 

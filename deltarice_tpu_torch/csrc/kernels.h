@@ -171,6 +171,14 @@ int dr_iir_blocked(const int16_t *d, int16_t *out, const int16_t *taps,
                    int f0, int64_t rows, int64_t n, int64_t block,
                    void *stream);
 
+/* The generic forward pre-filter of x, n int16 samples in rows of len, into
+ * out (n): out[i] = wrap16(sum_{j <= min(i mod len, ntaps - 1)} taps[j] *
+ * x[i - j]), each tap taken mod 2^16. taps: ntaps int16s on the device;
+ * any ntaps >= 1. Either pointer may be off a 16-byte boundary (those
+ * vectors move element by element). Nothing is launched when n is 0. */
+int dr_fir_encode(const int16_t *x, int16_t *out, const int16_t *taps,
+                  int64_t ntaps, int64_t n, int64_t len, void *stream);
+
 #ifdef __cplusplus
 }
 #endif

@@ -1,5 +1,5 @@
 /* The generic pre-filter inverse: every filter but the delta, whose
- * inverse B2 fuses.
+ * inverse B2 fuses. The forward filter (dr_fir_encode) follows it, below.
  *
  * Replaces deltarice_tpu/ops/prefilter.py::_iir_decode, which is no Pallas
  * kernel but a jitted lax.scan: XLA compiles it into one device loop over
@@ -633,5 +633,226 @@ extern "C" int dr_iir_blocked(const int16_t *d, int16_t *out,
     case 6: return blocked<6>(p, trans, s);
     case 7: return blocked<7>(p, trans, s);
     default: return blocked<8>(p, trans, s);
+  }
+}
+
+/* The generic forward pre-filter: every filter but the delta, which B1
+ * fuses. Replaces the int64 torch passes of ops/prefilter.py (the plain
+ * version, prefilter_encode_plain, which a CPU tensor takes) and, in the
+ * JAX package, deltarice_tpu/ops/prefilter.py::prefilter_encode, which is
+ * no Pallas kernel but int16 jnp ops that XLA fuses. Per row of len
+ * samples:
+ *
+ *   out[i] = wrap16(sum_{j <= min(i, ntaps - 1)} c16(taps[j]) * x[i - j]).
+ *
+ * The reference accumulates into a C short; products and sums run here in
+ * uint32 (mod 2^32, which agrees mod 2^16), with each sample's low 16 bits
+ * the only ones that matter, so nothing is widened past 32 bits.
+ *
+ * Bound: device-memory bytes, each sample read once and written once (4
+ * bytes a sample). The leading axes are flattened: the input is n = rows
+ * * len samples, cut into vectors of 8 (16 bytes) on that flat grid, so
+ * the loads and stores do not depend on len, and a sample's row position
+ * is e mod len. A block of kFirThreads threads owns kFirBlockVecs vectors
+ * (8192 samples, each thread kFirVecs of them, kFirThreads apart so that
+ * a warp's accesses are contiguous).
+ *
+ * Two forms by the filter's length, picked in dr_fir_encode:
+ *   kTaps in 1..kFirRegTaps (the filters users run: the optimizer's are a
+ *     few taps): the taps in registers and every loop unrolled. The block
+ *     stages its vectors, with the one vector before them (the halo; zero
+ *     before the input's start), in shared memory, all of a thread's loads
+ *     in flight at once; after one barrier each thread computes its 8
+ *     outputs a vector and stores them as one 16-byte store. A tap that
+ *     reaches past its row's start is masked; a vector that no row starts
+ *     in or just before (every vector but about one a row) takes the
+ *     unmasked sum.
+ *   kTaps == -1, any longer filter: no staging; each sample's history and
+ *     the taps are read from global memory through L1. Exact at every
+ *     length, and not tuned.
+ * Vectors whose pointer is off a 16-byte boundary, and the last vector of
+ * an input whose n is not a multiple of 8, move element by element (the
+ * same vectors, the same arithmetic): an input off 16 bytes moves every
+ * vector so. */
+namespace {
+
+constexpr int kFirThreads = 256;
+constexpr int kFirVecs = 4;  // vectors a thread
+constexpr int kFirBlockVecs = kFirThreads * kFirVecs;
+constexpr int kFirRegTaps = 8;  // taps kept in registers, unrolled
+
+struct FirParams {
+  const int16_t *x;
+  int16_t *out;
+  const int16_t *taps;  // ntaps int16s on the device
+  int64_t n, len;       // samples in all, samples a row
+  int ntaps, hvec;      // taps, halo vectors
+  bool vx, vo;          // x, out 16-byte aligned
+};
+
+// e mod len, in 32 bits where both fit
+__device__ __forceinline__ int64_t row_pos(int64_t e, int64_t len) {
+  if ((((uint64_t)e | (uint64_t)len) >> 32) == 0)
+    return (uint32_t)e % (uint32_t)len;
+  return e % len;
+}
+
+// vector v of x (samples 8 v to 8 v + 7), zero outside [0, n)
+__device__ __forceinline__ uint4 fir_load(const FirParams &p, int64_t v) {
+  const int64_t e = 8 * v;
+  if (p.vx && e >= 0 && e + 8 <= p.n)
+    return __ldg(reinterpret_cast<const uint4 *>(p.x) + v);
+  uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    if (e + k >= 0 && e + k < p.n)
+      w[k / 2] |= (uint32_t)(uint16_t)p.x[e + k] << (16 * (k & 1));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// the low halves of o as vector v of out, nothing past n
+__device__ __forceinline__ void fir_store(const FirParams &p, int64_t v,
+                                          const uint32_t (&o)[8]) {
+  const int64_t e = 8 * v;
+  if (p.vo && e + 8 <= p.n) {
+    *reinterpret_cast<uint4 *>(p.out + e) =
+        make_uint4(__byte_perm(o[0], o[1], 0x5410),
+                   __byte_perm(o[2], o[3], 0x5410),
+                   __byte_perm(o[4], o[5], 0x5410),
+                   __byte_perm(o[6], o[7], 0x5410));
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    if (e + k < p.n) p.out[e + k] = (int16_t)o[k];
+}
+
+/* Block x computes vectors [kFirBlockVecs x, kFirBlockVecs (x + 1)). */
+template <int kTaps>
+__global__ void __launch_bounds__(kFirThreads) fir_kernel(FirParams p) {
+  DR_DYNAMIC_SHARED(smem);
+  DR_SMEM_ENTRY_DYNAMIC(smem);
+  constexpr bool kStaged = kTaps > 0;
+  const int nwin = kStaged ? p.hvec + kFirBlockVecs : 0;
+  // the window: vector i is vector v0 - hvec + i of x
+  DR_SMEM_PTR(uint4) win = DR_SM_CARVE(uint4, smem, 0, nwin, "win");
+  const int t = threadIdx.x;
+  const int64_t v0 = (int64_t)blockIdx.x * kFirBlockVecs;
+  uint32_t c[kStaged ? kTaps : 1];
+  if constexpr (kStaged) {
+#pragma unroll
+    for (int j = 0; j < kTaps; ++j) c[j] = (uint16_t)__ldg(p.taps + j);
+    uint4 q[kFirVecs];
+#pragma unroll
+    for (int r = 0; r < kFirVecs; ++r)
+      q[r] = fir_load(p, v0 + t + r * kFirThreads);
+    for (int i = t; i < p.hvec; i += kFirThreads)
+      DR_SM(win, i) = fir_load(p, v0 - p.hvec + i);
+#pragma unroll
+    for (int r = 0; r < kFirVecs; ++r)
+      DR_SM(win, p.hvec + t + r * kFirThreads) = q[r];
+    DR_SYNCTHREADS();
+  }
+#pragma unroll
+  for (int r = 0; r < kFirVecs; ++r) {
+    const int local = t + r * kFirThreads;
+    const int64_t v = v0 + local;
+    if (8 * v >= p.n) break;
+    const int64_t pos = row_pos(8 * v, p.len);  // of the vector's first
+    uint32_t o[8];
+    if constexpr (kStaged) {
+      // s[kBack + k] is sample 8 v + k; the low halves carry garbage above
+      // bit 15, which no product or sum mod 2^16 sees
+      constexpr int kHv = (kTaps + 6) / 8;
+      constexpr int kBack = 8 * kHv;
+      uint32_t s[kBack + 8];
+#pragma unroll
+      for (int i = 0; i <= kHv; ++i) {
+        const uint4 w = DR_SM(win, local + i);  // hvec == kHv
+        const uint32_t h[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          s[8 * i + 2 * m] = h[m];
+          s[8 * i + 2 * m + 1] = h[m] >> 16;
+        }
+      }
+      if (pos >= kTaps - 1 && pos + 7 < p.len) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          uint32_t acc = 0;
+#pragma unroll
+          for (int j = 0; j < kTaps; ++j) acc += c[j] * s[kBack + k - j];
+          o[k] = acc;
+        }
+      } else {  // a row starts in or just before the vector
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int64_t pk = row_pos(pos + k, p.len);
+          uint32_t acc = 0;
+#pragma unroll
+          for (int j = 0; j < kTaps; ++j)
+            if (j <= pk) acc += c[j] * s[kBack + k - j];
+          o[k] = acc;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int64_t e = 8 * v + k;
+        const int64_t pk = row_pos(pos + k, p.len);
+        const int64_t jmax = pk < p.ntaps - 1 ? pk : p.ntaps - 1;
+        uint32_t acc = 0;
+        if (e < p.n) {
+          for (int64_t j = 0; j <= jmax; ++j)
+            acc += (uint32_t)(uint16_t)__ldg(p.taps + j) *
+                   (uint32_t)(uint16_t)__ldg(p.x + e - j);
+        }
+        o[k] = acc;
+      }
+    }
+    fir_store(p, v, o);
+  }
+}
+
+template <int kTaps>
+int fir_launch(const FirParams &p, int smem, cudaStream_t s) {
+  const int rc = set_smem((const void *)fir_kernel<kTaps>, smem);
+  if (rc != 0) return rc;
+  const int64_t blocks = ((p.n + 7) / 8 + kFirBlockVecs - 1) / kFirBlockVecs;
+  fir_kernel<kTaps><<<(unsigned)blocks, kFirThreads, smem, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int dr_fir_encode(const int16_t *x, int16_t *out,
+                             const int16_t *taps, int64_t ntaps, int64_t n,
+                             int64_t len, void *stream) {
+  if (ntaps < 1 || ntaps >= ((int64_t)1 << 30) || n < 0 || len < 1 ||
+      (n + 7) / 8 / kFirBlockVecs >= ((int64_t)1 << 31) - 1)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  FirParams p{};
+  p.x = x;
+  p.out = out;
+  p.taps = taps;
+  p.n = n;
+  p.len = len;
+  p.ntaps = (int)ntaps;
+  p.hvec = (int)((ntaps - 1 + 7) / 8);
+  p.vx = aligned16(x);
+  p.vo = aligned16(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t win = ((int64_t)p.hvec + kFirBlockVecs) * 16;
+  static_assert(kFirRegTaps == 8, "one case per register tap count");
+  switch (ntaps) {
+#define DR_FIR_REG(k) \
+  case k:             \
+    return fir_launch<k>(p, (int)win, s);
+    DR_FIR_REG(1) DR_FIR_REG(2) DR_FIR_REG(3) DR_FIR_REG(4) DR_FIR_REG(5)
+    DR_FIR_REG(6) DR_FIR_REG(7) DR_FIR_REG(8)
+#undef DR_FIR_REG
+    default:
+      return fir_launch<-1>(p, 0, s);
   }
 }

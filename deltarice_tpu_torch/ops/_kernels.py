@@ -65,6 +65,7 @@ _SIGNATURES = {
                         _I, _I, _I, _P],
     "dr_iir_decode": [_P, _P, _P, _I64, _I, _I64, _I64, _P, _P],
     "dr_iir_blocked": [_P, _P, _P, _P, _P, _I64, _I, _I64, _I64, _I64, _P],
+    "dr_fir_encode": [_P, _P, _P, _I64, _I64, _I64, _P],
 }
 
 #: scratch sizes the kernels' wrappers allocate: (length or words, nseg),

@@ -16,12 +16,14 @@ Semantics match the reference filter byte for byte:
   division being C's (truncation toward zero) applied to the *wrapped*
   int16 numerator — exact reconstruction requires |filt[0]| == 1.
 
-The encode and the delta inverse run as torch ops on the tensor's own
-device (the codec's delta path fuses them into B1 and B2 instead). The
-generic inverse launches the CUDA kernels of :mod:`.prefilter_cuda` on a
-CUDA tensor (the blocked scan of :mod:`.prefilter_model` for lossless
-filters of up to 8 history taps, a serial walk for the rest);
-:func:`iir_decode_plain` is its plain version, which a CPU tensor takes.
+The delta filter and its inverse run as torch ops on the tensor's own
+device (the codec's delta path fuses them into B1 and B2 instead). Every
+other filter launches the CUDA kernels of :mod:`.prefilter_cuda` on a
+CUDA tensor: the forward FIR one kernel over the flattened samples, the
+inverse the blocked scan of :mod:`.prefilter_model` for lossless filters
+of up to 8 history taps and a serial walk for the rest.
+:func:`prefilter_encode_plain` and :func:`iir_decode_plain` are their plain
+versions, which a CPU tensor takes.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 
 from ..config import DELTA_FILTER
 from . import _kernels
-from .prefilter_cuda import iir_decode
+from .prefilter_cuda import fir_encode, iir_decode
 from .prefilter_model import c16
 from .rice import wrap16
 
@@ -51,15 +53,30 @@ def prefilter_encode(x: torch.Tensor, filt: tuple[int, ...] = DELTA_FILTER,
 
     prev0: optional per-row sample preceding ``x[..., 0]``. Delta filter
     only — it is the recurrence's entire cross-block state.
+
+    The delta is torch ops on ``x``'s device. Any other filter launches
+    the CUDA kernel (:func:`.prefilter_cuda.fir_encode`) on a CUDA tensor
+    and takes :func:`prefilter_encode_plain` on a CPU tensor; any other
+    device raises.
     """
-    xi = x.to(torch.int64)
     if tuple(filt) == DELTA_FILTER:
+        xi = x.to(torch.int64)
         prev = _shift_right(xi, 1)
         if prev0 is not None:
             prev[..., 0] = prev0.to(xi.device, torch.int64)
         return wrap16(xi - prev).to(torch.int16)
     if prev0 is not None:
         raise ValueError("prev0 is only supported for the delta filter")
+    if _kernels.route(x):
+        return fir_encode(x, filt)
+    return prefilter_encode_plain(x, filt)
+
+
+def prefilter_encode_plain(x: torch.Tensor,
+                           filt: tuple[int, ...]) -> torch.Tensor:
+    """Plain version of the generic forward filter: a zero-filled shifted
+    copy, a multiply and an add a tap in int64, wrapped once."""
+    xi = x.to(torch.int64)
     acc = xi * c16(filt[0])
     for j, c in enumerate(filt[1:], start=1):
         acc = acc + _shift_right(xi, j) * c16(c)

@@ -1,5 +1,7 @@
-"""The generic pre-filter inverse (every filter but the delta) — CUDA
-kernels ``csrc/prefilter.cu``, the counterpart of
+"""The generic pre-filter (every filter but the delta): its inverse and,
+in :func:`fir_encode`, the forward filter.
+
+The inverse: CUDA kernels ``csrc/prefilter.cu``, the counterpart of
 ``deltarice_tpu/ops/prefilter.py::_iir_decode``. That is no Pallas kernel
 but a jitted ``lax.scan``, which XLA compiles into one device loop over the
 samples of the whole batch.
@@ -26,6 +28,11 @@ counts one ``iir_decode`` launch and one of its path
 (``iir_decode.blocked``, ``iir_decode.one_walk``, ``iir_decode.serial``).
 :func:`iir_decode_serial` runs the serial walk on any filter, the design
 the blocked scan replaced, to time the two on the same input.
+
+The forward filter: one launch of ``dr_fir_encode`` (``csrc/prefilter.cu``)
+over the flattened samples, counted as ``fir_encode``; the taps travel as
+a cached int16 tensor on the card. :func:`.prefilter
+.prefilter_encode_plain` is its plain version.
 """
 
 from __future__ import annotations
@@ -39,9 +46,12 @@ from .prefilter_model import STATE, block_transition, plan
 
 
 @functools.lru_cache(maxsize=64)
-def _taps(filt: tuple[int, ...], device: torch.device) -> torch.Tensor:
-    """filt[1:] mod 2**16 as int16 on ``device`` (the cast wraps)."""
-    return torch.tensor(filt[1:], dtype=torch.int64).to(torch.int16).to(device)
+def _taps(filt: tuple[int, ...], device: torch.device,
+          first: int = 1) -> torch.Tensor:
+    """filt[first:] (the inverse's history taps, or every tap for the
+    forward filter) mod 2**16 as int16 on ``device`` (the cast wraps)."""
+    return torch.tensor(filt[first:], dtype=torch.int64).to(
+        torch.int16).to(device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -52,14 +62,15 @@ def _transition(filt: tuple[int, ...], block: int,
     return block_transition(filt, block).to(torch.int16).to(device)
 
 
-def _check(d: torch.Tensor, filt) -> tuple[int, ...]:
+def _check(d: torch.Tensor, filt, name: str = "iir_decode",
+           arg: str = "d") -> tuple[int, ...]:
     if d.device.type != "cuda":
-        raise ValueError(f"iir_decode launches on a CUDA tensor, got {d.device}")
+        raise ValueError(f"{name} launches on a CUDA tensor, got {d.device}")
     filt = tuple(int(c) for c in filt)
     if not filt:
         raise ValueError("the filter needs at least one tap")
     if d.dim() == 0:
-        raise ValueError("d needs a sample axis")
+        raise ValueError(f"{arg} needs a sample axis")
     return filt
 
 
@@ -136,3 +147,21 @@ def iir_decode_serial(d: torch.Tensor, filt: tuple[int, ...]) -> torch.Tensor:
     out = _serial(_rows(d), filt)
     _kernels.launches["iir_decode_serial"] += 1
     return out.reshape(d.shape)
+
+
+def fir_encode(x: torch.Tensor, filt: tuple[int, ...]) -> torch.Tensor:
+    """Apply the generic pre-filter ``filt`` (any length, every tap taken
+    mod 2**16) along the last axis of the CUDA tensor ``x``, each row from
+    a zero history; returns int16 of ``x``'s shape. One launch, on the
+    current stream."""
+    filt = _check(x, filt, "fir_encode", "x")
+    x = x.to(torch.int16).contiguous()
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    rc = _kernels.library().dr_fir_encode(
+        x.data_ptr(), out.data_ptr(), _taps(filt, x.device, 0).data_ptr(),
+        len(filt), x.numel(), x.shape[-1], _kernels.stream())
+    _kernels.check(rc, "fir_encode")
+    _kernels.launches["fir_encode"] += 1
+    return out

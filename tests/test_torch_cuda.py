@@ -1153,6 +1153,69 @@ def test_iir_decode_blocked_edges_match_plain(cuda, filt):
     assert torch.equal(got[:, :20000].cpu(), want)
 
 
+def _forward_matches_plain(x, filt):
+    """The forward filter on the card (``prefilter_encode``, one
+    ``fir_encode`` launch, none for an empty input) against its plain
+    version on a CPU copy."""
+    before = dict(_kernels.launches)
+    got = prefilter.prefilter_encode(x if x.is_cuda else x.cuda(), filt)
+    torch.cuda.synchronize()
+    grew = {k: v - before.get(k, 0) for k, v in _kernels.launches.items()
+            if v != before.get(k, 0)}
+    assert grew == ({"fir_encode": 1} if x.numel() else {})
+    assert got.dtype == torch.int16 and got.shape == x.shape and got.is_cuda
+    assert torch.equal(got.cpu(), prefilter.prefilter_encode_plain(x.cpu(),
+                                                                   filt))
+
+
+@pytest.mark.parametrize("ntaps,f0", GRID)
+def test_fir_encode_matches_plain(cuda, ntaps, f0):
+    # 601 samples a row: rows start inside vectors, the last vector short;
+    # 70 rows: 42070 samples, six blocks
+    _forward_matches_plain(torch.from_numpy(samples((70, 601), ntaps)),
+                           grid_filter(ntaps, f0))
+
+
+@pytest.mark.parametrize("filt", EDGES, ids=str)
+def test_fir_encode_division_edges_match_plain(cuda, filt):
+    _forward_matches_plain(torch.from_numpy(samples((40, 520), 7)), filt)
+
+
+@pytest.mark.parametrize("shape", [(33, 601), (5, 3), (1, 1), (4, 0),
+                                   (0, 9), (1001,), (2, 3, 50), (3, 8192),
+                                   (1, 8193), (9, 7)], ids=str)
+@pytest.mark.parametrize("ntaps", [3, 8, 12, 17])
+def test_fir_encode_shapes_match_plain(cuda, shape, ntaps):
+    """Rows shorter than the filter's halo, empty inputs, 1-D and 3-D
+    inputs, a block of 8192 samples and one sample past it."""
+    _forward_matches_plain(torch.from_numpy(samples(shape, ntaps)),
+                           grid_filter(ntaps, -1))
+
+
+@pytest.mark.parametrize("filt", [(1, 0, -1), (1, -1, 0, 1) * 3], ids=len)
+def test_fir_encode_misaligned_view_matches_plain(cuda, filt):
+    flat = torch.from_numpy(samples((40 * 512 + 1,), 9)).cuda()
+    x = flat[1:].view(40, 512)  # contiguous, 2 bytes off 16-byte alignment
+    assert x.data_ptr() % 16 == 2
+    _forward_matches_plain(x, filt)
+
+
+@pytest.mark.parametrize("ntaps", [8, 9, 16, 17, 200, 1100, 30000, 40000])
+def test_fir_encode_long_filters_match_plain(cuda, ntaps):
+    """8 taps: the last in registers. Past them every read, of the history
+    and of the taps, from global memory. No length is refused."""
+    filt = grid_filter(ntaps, 1)
+    shape = (35, 300) if ntaps < 30000 else (3, 300)
+    _forward_matches_plain(torch.from_numpy(samples(shape, ntaps)), filt)
+
+
+def test_fir_encode_at_the_nab_opt_batch_matches_plain(cuda):
+    """The 20000 x 7000 batch of ``nab_opt.vram_encode``, filter (1, 0,
+    -1): one launch over 140 million samples."""
+    x = torch.from_numpy(samples((20000, 7000), 23))
+    _forward_matches_plain(x, (1, 0, -1))
+
+
 def test_batch_with_a_long_filter_matches_native(cuda):
     """A filter of 1100 taps, longer than the 1024 the card once refused,
     through compress_batch / decompress_batch on the card."""
@@ -1512,6 +1575,21 @@ def test_guard_exact_child_over_ragged_b2(cuda):
          "--cases", "c.unpack_decode", "--cases", "c.unpack_tables"])
     assert rc == 0, f"died in {unfinished} with {error}:\n{out[-3000:]}"
     assert any(ln.startswith("[guard] exact: ") and " 0 faults" in ln
+               for ln in out.splitlines()), out[-3000:]
+
+
+@pytest.mark.parametrize("mode,fill", [("end", 165), ("front", 90),
+                                       ("exact", 195)])
+def test_guard_children_over_the_forward_filter(cuda, mode, fill):
+    """The forward filter's kernel on case c's shapes under each guard
+    placement (``exact``: inputs off a 16-byte boundary, which take the
+    element-wise loads): no access outside a buffer, every output equal
+    to its plain version."""
+    rc, out, (unfinished, error) = _guard_child(
+        [str(ROOT / "chip_smoke.py"), "--guard", mode, "--fill", str(fill),
+         "--cases", "c.fir_encode"])
+    assert rc == 0, f"died in {unfinished} with {error}:\n{out[-3000:]}"
+    assert any(ln.startswith(f"[guard] {mode}: ") and " 0 faults" in ln
                for ln in out.splitlines()), out[-3000:]
 
 

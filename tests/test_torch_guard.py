@@ -36,7 +36,7 @@ WRAPPERS = ("pack_encode", "unpack_tables", "unpack_decode",
             "concentrate_packed", "concentrate_wide", "concentrate_wide16",
             "concentrate_tiled", "concentrate_tiled_vd", "split_decode",
             "split_decode_passes", "transpose2d", "iir_decode",
-            "iir_decode_serial")
+            "iir_decode_serial", "fir_encode")
 
 
 @functools.lru_cache(maxsize=1)
@@ -185,7 +185,7 @@ def test_the_parent_names_a_dead_childs_case_and_error():
 
 def test_the_case_list_covers_every_kernel_wrapper():
     cs = smoke()
-    assert sorted(cs.GUARD_KERNELS) == sorted(WRAPPERS) and len(WRAPPERS) == 13
+    assert sorted(cs.GUARD_KERNELS) == sorted(WRAPPERS) and len(WRAPPERS) == 14
     launched = set().union(*(c.launches for c in cases()))
     assert set(WRAPPERS) | set(cs.IIR_PATHS) <= launched
     names = [c.name for c in cases()]
@@ -215,7 +215,7 @@ def test_every_counted_launch_is_a_guarded_wrapper():
     "a.", "b.nab.", "b.nedm.", "b.noptrex.", "c.pack_encode",
     "c.unpack_decode", "c.unpack_tables", "c.concentrate_packed",
     "c.concentrate_wide", "c.concentrate_tiled", "c.transpose2d",
-    "c.split_decode", "c.iir_decode", "d."])
+    "c.split_decode", "c.iir_decode", "c.fir_encode", "d."])
 def test_cases_match_their_references_on_the_cpu(group):
     """Each case of the group run on the CPU: codec cases against native C,
     B2 on hostile planes against native ``dr_decompress`` and the plain

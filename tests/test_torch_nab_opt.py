@@ -5,8 +5,9 @@ optimizer returns for 3 taps, set through ``cd_values``
 imports neither package) against the C reference's golden streams; the
 port's ``encode_segments`` / ``decode_segments`` against the plain codec
 at the deployment's full 7000-sample width, cut to a few rows; the
-optimizer's choice on the Nab profile; and the generic pre-filter's
-counters and device events. The same comparison at 2000 x 7000 on the card
+optimizer's choice on the Nab profile; the generic pre-filter's
+counters and device events; and, on a card, one ``fir_encode`` launch a
+generic-filter encode and none a delta encode. The same comparison at 2000 x 7000 on the card
 is in ``tests/test_torch_cuda.py``. Imports no JAX.
 """
 
@@ -20,6 +21,7 @@ import torch
 import deltarice_tpu_torch as dt
 from deltarice_tpu_torch import tracing
 from deltarice_tpu_torch.models import get_profile
+from deltarice_tpu_torch.ops import _kernels
 from deltarice_tpu_torch.optimize import optimize
 import plain_codec as pc
 
@@ -133,6 +135,27 @@ def test_prefilter_counters_count_generic_rows_only(filt):
         assert tracing.event_ms(snap, tracing.ENTRY[op], 5, event) is None
     assert all(s["device_ms"] == {} for s in snap["spans"])
     tracing.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("filt", [FILT, pc.DELTA], ids=["nab_opt", "delta"])
+def test_a_generic_filter_encode_launches_fir_encode_once(filt):
+    """On the card one encode of a generic filter launches the forward
+    filter's kernel once; a delta encode (B1 fuses the delta) none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = dt.RiceConfig(M, L, filt=filt)
+    x, nv = _batch(5)
+    dt.encode_segments(x, nv, cfg, CAP, device="cuda")  # builds, warms
+    before = _kernels.launches["fir_encode"]
+    words, counts = dt.encode_segments(x, nv, cfg, CAP, device="cuda")
+    torch.cuda.synchronize()
+    assert _kernels.launches["fir_encode"] - before == (filt != pc.DELTA)
+    ref_words, ref_counts = pc.encode(torch.from_numpy(x),
+                                      torch.from_numpy(nv), M, CAP, filt)
+    assert torch.equal(counts.cpu().to(torch.int64), ref_counts)
+    fit = (counts.cpu() <= CAP).numpy()
+    assert torch.equal(words.cpu()[fit], ref_words[fit])
 
 
 def test_a_split_segment_counts_each_sub_block_once():

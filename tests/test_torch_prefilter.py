@@ -1,12 +1,14 @@
-"""The generic pre-filter inverse on the CPU: the port's plain version
+"""The generic pre-filter on the CPU: the inverse's plain version
 (``ops/prefilter.py::iir_decode_plain``) against the JAX package's
-``_iir_decode``, the routing of ``prefilter_decode``, and the codec with
-generic filters against the JAX codec and the native C codec.
+``_iir_decode``, the routing of ``prefilter_decode`` and
+``prefilter_encode`` (the forward filter's plain model is held in
+``tests/test_torch_prefilter_fir.py``), and the codec with generic filters
+against the JAX codec and the native C codec.
 
 Inputs come from numpy seeds (``tests/prefilter_cases.py``); every
 comparison is exact (tolerance 0: the inverse is integer arithmetic, and
 the JAX package's output is the reference even where it is lossy). The
-kernel itself is held against the plain version on the card by
+kernels themselves are held against the plain versions on the card by
 ``tests/test_torch_cuda.py``.
 """
 
@@ -92,11 +94,30 @@ def test_prefilter_decode_on_the_cpu_never_touches_the_kernels(monkeypatch):
     assert dict(_kernels.launches) == before
 
 
+def test_prefilter_encode_on_the_cpu_never_touches_the_kernels(monkeypatch):
+    def refuse(*_a, **_k):
+        raise AssertionError("the CPU path reached the kernel")
+
+    monkeypatch.setattr(_kernels, "library", refuse)
+    monkeypatch.setattr(prefilter, "fir_encode", refuse)
+    before = dict(_kernels.launches)
+    x = samples((3, 30), 5)
+    for filt in ((1, 0, -1), (8, -1), (65536,), (1, -1)):
+        got = prefilter.prefilter_encode(torch.from_numpy(x), filt)
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jpre.prefilter_encode(jnp.asarray(x),
+                                                          filt)))
+    assert dict(_kernels.launches) == before
+
+
 def test_unsupported_devices_raise():
     meta = torch.empty((2, 8), dtype=torch.int16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         prefilter.prefilter_decode(meta, (1, 0, -1))
-    for entry in (prefilter_cuda.iir_decode, prefilter_cuda.iir_decode_serial):
+    with pytest.raises(ValueError, match="unsupported device"):
+        prefilter.prefilter_encode(meta, (1, 0, -1))
+    for entry in (prefilter_cuda.iir_decode, prefilter_cuda.iir_decode_serial,
+                  prefilter_cuda.fir_encode):
         with pytest.raises(ValueError, match="CUDA tensor"):
             entry(torch.zeros((2, 8), dtype=torch.int16), (1, 0, -1))
 
