@@ -23,19 +23,21 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    and unpack kernels must each have launched;
 5. drives the long-segment path on nEDM (1024 x 81920, M=16, as 32 chunks
    of (32, 81920)) and NOPTREX (256 x 500000, M=8, as 8 chunks of
-   (32, 500000)): the sub-block split encode with its device merge (B3 for
-   nEDM, B5 for NOPTREX), the exact decode (B2) with the split switch off
-   and the speculative split decode (B9 + B6) with it on; every stream
+   (32, 500000)): the encode of whole rows (B1), the exact decode (B2)
+   with the split switch off and the speculative split decode (B9 + B6)
+   with it on; every stream
    must equal native ``dr_compress``, every chunk must decode exactly both
    ways and through native ``dr_decompress``, the split decode must flag
    the segments it flagged before (nEDM 3, NOPTREX 98), and each kernel of
    the path must have launched;
-6. holds B3, B5, B6 and B9 against their plain versions on the inputs the
+6. holds B6 and B9 against their plain versions on the inputs the
    long-segment path gave them (B9's plain loop on its first 64 segments),
+   and B3 and B5 on planes shaped like the JAX encode's sub-stream merge
+   at nEDM and NOPTREX (the port's encode merges nothing),
    times B9's passes with one ``torch.profiler`` repeat of launches
    stopped after each pass and splits the split decode layer's device
    time into B9, B6 and the merge's torch glue,
-   B1 at the NOPTREX split's sub-row shape and B2 at one NOPTREX h5
+   B1 on NOPTREX's whole rows and B2 at one NOPTREX h5
    bucket's shape (64 segments; its plain version there is the plain model
    of its tiled passes, ``ops/tiled_model.py``), and B7 (nEDM) and B8
    (NOPTREX) on the tiled staging the JAX decode kernel emits for the same
@@ -67,7 +69,7 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    row with its launches on the path, its time, its plain version's, the
    one-call PyTorch yardstick's where there is one, and its bound: the
    bytes its inputs need and its outputs take over the H100's 3.35 TB/s;
-   B3 has a row at the Nab staging and one at the nEDM merge;
+   B3 has a row at the Nab staging and one at the nEDM merge's shape;
 11. drives the chunk data parallelism (``deltarice_tpu_torch.parallel``):
    a world of one rank over NCCL (a ``file://`` store) encodes and decodes
    phase 4's 64 Nab chunks and phase 5's 8 NOPTREX chunks through
@@ -99,7 +101,7 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    this card 25 % above the fresh value (exit 1, ``FAIL``) and against one
    of another card (exit 0, no baseline); ``tools.bench_geometries`` on its
    seven configs (nEDM and NOPTREX with the split switch off and on), whose
-   ratios and split parts must equal ``GEOMETRY_BENCH.json``'s;
+   ratios must equal ``GEOMETRY_BENCH.json``'s;
    ``tools.fuzz_native`` on 60 cases of seed 0 with no failure (2-6 s on
    an H100 since the generic inverse became a kernel; its ``slowest``
    cases, 28, 31 and 43, take 0.1-0.5 s each, where cases 31 and 58 took
@@ -107,8 +109,8 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    ``tools.bench_file`` on the in-memory store, three geometries at 64 MB;
    ``tools.profile_stages`` at Nab and nEDM; ``tools.singlechip_scaling``;
    ``tools.scaling_bench`` over NCCL on the cards present, 64 Nab chunks of
-   (32, 7000) a rank. No window may launch B4, and B1, B2, B3, B5, B6 and
-   B9 must each launch;
+   (32, 7000) a rank. No window may launch B4, and B1, B2, B6 and B9 must
+   each launch;
 13. drives the generic-filter path, whose encode starts with the forward
    filter's kernel (``fir_encode``, ``csrc/prefilter.cu``) and whose
    decode ends in the generic pre-filter inverse's kernels (``iir_decode``, ``csrc/prefilter.cu``,
@@ -120,7 +122,7 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    ``LOSSY_FILTER``, ``h5.write_dataset`` / ``h5.read_dataset`` of Nab
    2000 x 7000 with the optimizer's choice (split switch off and on), and
    phase 5's 8 NOPTREX chunks with ``NOPTREX_FILTER`` at
-   ``NOPTREX_FILTER_M`` (the split encode's FIR halo; the decode after B2
+   ``NOPTREX_FILTER_M`` (the FIR over whole rows; the decode after B2
    and, switch on, after B9 + B6); every stream and blob must equal native
    ``dr_compress``, every lossless decode the input and the lossy one
    native ``dr_decompress``'s output, every decode and read must launch
@@ -160,14 +162,14 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    decode takes minutes a corpus; the CPU tests hold the two equal). A
    valid decode after each corpus must be exact. Then verify-retry: a
    transient payload fault and a cut header through ``compress_batch
-   (verify=True)`` (Nab, and 8 chunks of each long geometry, whose
-   re-encodes merge through B3 and B5) recover to native ``dr_compress``'s
+   (verify=True)`` (Nab, and 8 chunks of each long geometry) recover to
+   native ``dr_compress``'s
    bytes, split switch off and on, and a persistent fault raises
    ``RuntimeError``; ``h5.write_dataset(verify=True)`` repairs a fault in
    the second of three windows, a read with a truncated chunk raises
    ``ValueError`` and the next read is exact. These runs are counted
-   (path ``hostile``) and must launch B1, B2, B3, B5, B6, B9 and the
-   generic inverse. Then B2, B9 + B6 and the inverse on hostile words
+   (path ``hostile``) and must launch B1, B2, B6, B9 and the generic
+   inverse. Then B2, B9 + B6 and the inverse on hostile words
    with each input before two random guard tails (equal outputs; equal to
    the plain version at Nab), and a subprocess (``chip_smoke.py
    --memcheck``: one corrupt bucket of each geometry, split off and on,
@@ -208,7 +210,7 @@ kernels from ``deltarice_tpu_torch/csrc`` and the native C codec from
    memory cannot hold the default window it halves the window and prints
    the cut). Every chunk must read back exactly, the first and last
    windows' blobs must equal native ``dr_compress``, the write must launch
-   B1 (and B3 for nEDM, B5 for NOPTREX) and the read B2, neither B4, the
+   B1 and the read B2, neither B4, the
    write must hold fewer than two windows of source blocks at once, and
    RSS less blobs, pinned reserved and device reserved bytes must each
    grow by at most one window's raw bytes from the end of window 2 on;
@@ -274,6 +276,10 @@ H5_WINDOW = {"nab": 16, "nedm": 8, "noptrex": 2}
 SPLIT_ENV = "DELTARICE_TPU_SPLIT_DECODE"
 # B7 and B8 compact TPU decode staging, which the port's decode never makes
 STAGING_KERNELS = ("concentrate_tiled", "concentrate_tiled_vd")
+# (rows, parts, words a part) of the JAX encode's sub-stream merge of
+# phase 5's batches, the shapes phase 6 holds B3 (nEDM) and B5 (NOPTREX) at
+MERGE_SHAPES = {"nedm": (1024, 8, 1792), "noptrex": (256, 32, 2304)}
+MERGE_KERNELS = ("concentrate_packed", "concentrate_wide")
 REF_C_GBPS = 2.0 / (1.0 / 2.387 + 1.0 / 1.782)  # reference C write/read, hmean
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 OPT_BUCKET = 64  # segments of one NOPTREX h5 decode bucket (2 chunks of 32)
@@ -800,18 +806,14 @@ def phase_long(name: str, x_np) -> tuple[dict, dict]:
     from deltarice_tpu_torch import codec, native
     from deltarice_tpu_torch.models import get_profile
     from deltarice_tpu_torch.ops import _kernels
-    from deltarice_tpu_torch.ops import concentrate as conc_router
     from deltarice_tpu_torch.ops import split_decode as sd
 
     t0 = time.perf_counter()
     cfg = get_profile(name).config
     length = cfg.waveform_length
     chunks = list(x_np.reshape(-1, CHUNK_ROWS, length))
-    parts_enc = codec._split_parts(CHUNK_ROWS, length, cfg)
     # warm-up, capturing what the path hands each kernel
-    with captured([(conc_router, "concentrate_packed"),
-                   (conc_router, "concentrate_wide"),
-                   (sd, "concentrate_wide16"),
+    with captured([(sd, "concentrate_wide16"),
                    (sd, "split_decode"),
                    (codec, "pack_encode"),
                    (codec, "unpack_decode"),
@@ -851,17 +853,19 @@ def phase_long(name: str, x_np) -> tuple[dict, dict]:
               f"{name} chunk {i}: decode (split on) differs")
         check(np.array_equal(native.native_decompress(s, cd), c.ravel()),
               f"{name} chunk {i}: native dr_decompress disagrees")
-    merge = "concentrate_packed" if name == "nedm" else "concentrate_wide"
-    need = {"encode+decode(off)": ("pack_encode", merge, "unpack_decode"),
+    need = {"encode+decode(off)": ("pack_encode", "unpack_decode"),
             "decode(on)": ("split_decode", "concentrate_wide16")}
     for window, names in need.items():
         for kernel in names:
             check(windows[window].get(kernel, 0) > 0,
                   f"{name} {window} never launched {kernel}")
+    for kernel in MERGE_KERNELS:
+        check(windows["encode+decode(off)"].get(kernel, 0) == 0,
+              f"{name}: the encode of whole rows launched {kernel}")
     check(flagged == FLAGGED[name], f"{name}: the split decode flagged "
           f"{flagged} segments, {FLAGGED[name]} before")
     print(f"[5 long {name}] {len(chunks)} chunks of ({CHUNK_ROWS}, {length})"
-          f" M={cfg.m}: encode split P={parts_enc}, split decode P="
+          f" M={cfg.m}: encode of whole rows, split decode P="
           f"{parts_dec}; every stream equals native dr_compress, every chunk"
           f" decodes exactly with the split switch off and on; {flagged} "
           f"flagged rows re-decoded; launches "
@@ -884,8 +888,9 @@ def phase_long(name: str, x_np) -> tuple[dict, dict]:
 
 
 def phase_long_kernels(calls_by_path: dict, card: str) -> tuple[list, list]:
-    """B5, B6 and B9 against their plain versions on the inputs the
-    long-segment path gave them (B3 too, at the nEDM merge's shape), and B7
+    """B6 and B9 against their plain versions on the inputs the
+    long-segment path gave them, B3 and B5 on planes shaped like the JAX
+    encode's sub-stream merge (:func:`merge_plane`), and B7
     and B8 on the JAX decode's staging of the same buckets, with the split
     of their time (:func:`tiled_split`). B9's shape is (sub-rows, words per
     sub-row). Returns (their rows, the rows of B1 at the NOPTREX split's
@@ -893,6 +898,7 @@ def phase_long_kernels(calls_by_path: dict, card: str) -> tuple[list, list]:
     from deltarice_tpu_torch.ops.concentrate_cuda import (
         concentrate_packed, concentrate_packed_plain, concentrate_wide,
         concentrate_wide_plain, concentrate_wide16, concentrate_wide16_plain)
+    from deltarice_tpu_torch.ops import concentrate as conc_router
     from deltarice_tpu_torch.ops.concentrate_tiled_cuda import (
         concentrate_tiled, concentrate_tiled_plain, concentrate_tiled_vd,
         concentrate_tiled_vd_plain, decode_staging, staging_route, untile)
@@ -962,7 +968,10 @@ def phase_long_kernels(calls_by_path: dict, card: str) -> tuple[list, list]:
         rows[kernel]["split"] = tiled_split(kernel, path, planes, n_samples,
                                             sb, mode == "bias", card)
         del planes, got, samples
-        for args in calls["concentrate_packed"][:1]:
+        with captured([(conc_router, "concentrate_packed"),
+                       (conc_router, "concentrate_wide")]) as (merge, _ms):
+            conc_router.concentrate(*merge_plane(*MERGE_SHAPES[path]))
+        for args in merge["concentrate_packed"][:1]:
             got = concentrate_packed(*args)
             err = max_err(got, concentrate_packed_plain(*args))
             compare("concentrate_packed", err,
@@ -970,7 +979,7 @@ def phase_long_kernels(calls_by_path: dict, card: str) -> tuple[list, list]:
                     cuda_ms(lambda: concentrate_packed_plain(*args), 3),
                     list(args[0][0].shape), list(args[0][0].shape), path,
                     nbytes(*args[0], got))
-        for args in calls["concentrate_wide"][:1]:
+        for args in merge["concentrate_wide"][:1]:
             got = concentrate_wide(*args)
             err = max_err(got, concentrate_wide_plain(*args))
             compare("concentrate_wide", err,
@@ -1021,13 +1030,31 @@ def phase_long_kernels(calls_by_path: dict, card: str) -> tuple[list, list]:
            "concentrate_tiled_vd": (
                "deltarice_tpu_torch/csrc/concentrate_tiled.cu",
                "deltarice_tpu/ops/concentrate_pallas.py:511")}
-    for kernel in ("concentrate_wide", "concentrate_wide16", "split_decode",
-                   "concentrate_tiled", "concentrate_tiled_vd"):
-        check(kernel in rows, f"the long-segment path never called {kernel}")
+    for kernel in ("concentrate_packed", "concentrate_wide",
+                   "concentrate_wide16", "split_decode", "concentrate_tiled",
+                   "concentrate_tiled_vd"):
+        check(kernel in rows, f"phase 6 never held {kernel}")
     tiled_sass()
     return ([{"name": k, "route": "cuda", "source": src[k][0],
               "replaces": src[k][1], **v} for k, v in rows.items()],
             phase_long_codec(calls_by_path["noptrex"]))
+
+
+def merge_plane(rows: int, parts: int, width: int, seed: int = 0):
+    """(values, disp, n_out) on the card shaped like the JAX encode's
+    sub-stream merge: ``parts`` runs a row of ``width`` slots, each live
+    from its start over 90-100 % of its slots and moved by one displacement
+    to follow the run before; random 32-bit payloads."""
+    rng = np.random.default_rng(seed)
+    live = rng.integers(width * 9 // 10, width + 1, (rows, parts))
+    start = np.cumsum(live, axis=1) - live
+    disp = np.where(np.arange(width) < live[:, :, None],
+                    (np.arange(parts) * width - start)[:, :, None], -1)
+    values = rng.integers(-2**31, 2**31, disp.shape, dtype=np.int64)
+    n_out = -(-(int(live.sum(axis=1).max()) + 1) // 256) * 256
+    return (torch.from_numpy(values.astype(np.int32).reshape(rows, -1)).cuda(),
+            torch.from_numpy(disp.astype(np.int32).reshape(rows, -1)).cuda(),
+            n_out)
 
 
 def profiled_rows(run, names) -> list:
@@ -1301,7 +1328,7 @@ def b9_passes(path, args, reps: int = 5) -> None:
 
 
 def phase_long_codec(calls) -> list[dict]:
-    """B1 on the NOPTREX split encode's sub-rows and B2 on one NOPTREX h5
+    """B1 on NOPTREX's whole rows and B2 on one NOPTREX h5
     bucket (the first OPT_BUCKET segments of a decode bucket), each against
     its plain version on the card: B1's serial oracle, and for B2 the plain
     tiled decode from the walks of every tile from every entry phase,
@@ -1326,7 +1353,7 @@ def phase_long_codec(calls) -> list[dict]:
         "deltarice_tpu/ops/pack_pallas.py:62", err,
         cuda_ms(lambda: pack_encode(*args), 20), plain_ms,
         list(args[0].shape), pack_bytes(args[1], got[1]), None,
-        "noptrex split sub-rows"))
+        "noptrex whole rows"))
     words, n_samples, k, delta = calls["unpack_decode"][0]
     words = words[:OPT_BUCKET].contiguous()
     got = unpack_decode(words, n_samples, k, delta)
@@ -1831,13 +1858,9 @@ def phase_measurement_tools(card: str) -> dict:
         check(row["ratio"] == want["ratio"],
               f"bench_geometries {row['config']}: ratio {row['ratio']}, "
               f"GEOMETRY_BENCH.json {want['ratio']}")
-        check(row.get("split_parts") == want.get("split_parts"),
-              f"bench_geometries {row['config']}: split_parts "
-              f"{row.get('split_parts')}, GEOMETRY_BENCH.json "
-              f"{want.get('split_parts')}")
-    print(f"[12 tools] bench_geometries: the {len(published)} ratios and "
-          f"split_parts equal GEOMETRY_BENCH.json's; every round trip exact "
-          f"with the split switch off and (nedm, noptrex) on")
+    print(f"[12 tools] bench_geometries: the {len(published)} ratios equal "
+          f"GEOMETRY_BENCH.json's; every round trip exact with the split "
+          f"switch off and (nedm, noptrex) on")
 
     rep = counted("fuzz_native", lambda: fuzz_native.run(
         FUZZ_CASES, 0, "cuda", log=print))
@@ -1859,8 +1882,8 @@ def phase_measurement_tools(card: str) -> dict:
     for window, n in windows.items():
         check(n.get("transpose2d", 0) == 0, f"phase 12 {window} launched "
               f"transpose2d")
-    for kernel in ("pack_encode", "unpack_decode", "concentrate_packed",
-                   "concentrate_wide", "concentrate_wide16", "split_decode"):
+    for kernel in ("pack_encode", "unpack_decode", "concentrate_wide16",
+                   "split_decode"):
         check(any(n.get(kernel) for n in windows.values()),
               f"phase 12 never launched {kernel}")
     return windows
@@ -2462,10 +2485,8 @@ def phase_hostile(data: dict) -> dict:
           f"chunk raises ValueError, the next read is exact; "
           f"{time.perf_counter() - t:.1f} s")
     need = {"corpus": ("unpack_decode", "split_decode", "concentrate_wide16",
-                       "iir_decode", "pack_encode", "concentrate_packed",
-                       "concentrate_wide"),
-            "verify": ("pack_encode", "unpack_decode", "concentrate_packed",
-                       "concentrate_wide", "split_decode"),
+                       "iir_decode", "pack_encode"),
+            "verify": ("pack_encode", "unpack_decode", "split_decode"),
             "h5": ("pack_encode", "unpack_decode")}
     for window, names in need.items():
         for kernel in names:
@@ -2639,8 +2660,8 @@ def phase_memcheck() -> None:
         tail = "\n".join(out.splitlines()[-40:])
         raise SmokeFailure(f"memcheck: rc {res.returncode}, summary "
                            f"{summary}:\n{tail}")
-    print(f"[14 hostile] memcheck: ERROR SUMMARY: 0 errors over B1, B2, B3, "
-          f"B5, B6, B9 and the generic inverse; "
+    print(f"[14 hostile] memcheck: ERROR SUMMARY: 0 errors over B1, B2, "
+          f"B6, B9 and the generic inverse; "
           f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -2709,8 +2730,8 @@ def memcheck_child() -> int:
         for name, cfg, chunk in runs:
             memcheck_stream(hc, name, cfg, chunk)
             torch.cuda.synchronize()
-        for kernel in ("pack_encode", "concentrate_packed", "concentrate_wide",
-                       "unpack_decode", "split_decode", "concentrate_wide16",
+        for kernel in ("pack_encode", "unpack_decode", "split_decode",
+                       "concentrate_wide16",
                        "iir_decode.blocked", "iir_decode.serial"):
             check(_kernels.launches.get(kernel, 0) > 0,
                   f"the memcheck run never launched {kernel}")
@@ -3148,9 +3169,7 @@ def encode_cases(geoms) -> list[GuardCase]:
     ``dr_compress``, of the chunk and, in a batch of its own, of the chunk
     with every fifth row uniform noise: Nab with its rows forced over a
     word cap of 256 (so that every row re-encodes at the full bound), nEDM
-    and NOPTREX by the split encode, whose merge takes B3 (nEDM's smooth
-    chunk) and B5 (NOPTREX, and nEDM's noisy sub-streams, too wide for
-    B3's packed planes)."""
+    and NOPTREX at the host hint's cap, whole rows through B1."""
     from deltarice_tpu_torch import codec
 
     cases = []
@@ -3158,11 +3177,8 @@ def encode_cases(geoms) -> list[GuardCase]:
         noisy = chunk.copy()
         noisy[1::5] = np.random.default_rng(5).integers(
             -32768, 32768, noisy[1::5].shape)
-        merge = {"nab": (), "nedm": ("concentrate_packed",
-                                     "concentrate_wide"),
-                 "noptrex": ("concentrate_wide",)}[name]
         cases.append(GuardCase(
-            f"d.{name}", ("pack_encode",) + merge,
+            f"d.{name}", ("pack_encode",),
             functools.partial(_encode_run, codec, cfg, [chunk, noisy],
                               name == "nab")))
     return cases
@@ -3636,8 +3652,8 @@ def phase_streaming() -> dict:
 def stream_profile(name: str, rows: int, batch: int) -> dict:
     """One stream of phase 16. Every chunk read back must equal its source
     chunk; the blobs of the first and the last window must equal native
-    ``dr_compress``; the write must launch B1 (and the split merge's B3 for
-    nEDM, B5 for NOPTREX), the read B2, and neither B4; and
+    ``dr_compress``; the write must launch B1, the read B2, and neither B4;
+    and
     :func:`stream_growth` must hold for the write and for the read."""
     from deltarice_tpu_torch import h5, native
     from deltarice_tpu_torch.models import get_profile
@@ -3712,10 +3728,7 @@ def stream_profile(name: str, rows: int, batch: int) -> dict:
     walls["read"] = time.perf_counter() - t0
     runs[f"{name} read"] = dict(_kernels.launches)
     check(seen == nchunks, f"{name}: read {seen} chunks, want {nchunks}")
-    merge = {"nedm": "concentrate_packed", "noptrex": "concentrate_wide"}
-    want = {"write": ["pack_encode"] + ([merge[name]] if name in merge
-                                        else []),
-            "read": ["unpack_decode"]}
+    want = {"write": ["pack_encode"], "read": ["unpack_decode"]}
     for what, kernels in want.items():
         n = runs[f"{name} {what}"]
         for kernel in kernels:
@@ -3833,6 +3846,9 @@ def run() -> int:
         if row["name"] in STAGING_KERNELS:
             row["note"] = ("not on the port's path: B2 and B9 store samples "
                            "at their final index and make no staging")
+        if row["name"] in MERGE_KERNELS:
+            row["note"] = ("not on the port's path: B1 encodes long rows "
+                           "whole, so no sub-streams are merged")
     print(f"[total] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

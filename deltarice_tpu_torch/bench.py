@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from .codec import (
-    _reencode_bad_rows,
+    _reencode_rows,
     _words_hint,
     compress_batch,
     decode_segments,
@@ -97,10 +97,9 @@ def run(nseg: int = 2048, iters: int = 20, reps: int = 5,
     wn = words[:, : min(wmax, cap)].cpu().numpy().view(np.uint32)
     if wmax > cap:
         wn = np.pad(wn, ((0, 0), (0, wmax - cap)))
-    over = nw > cap
-    if over.any():  # rows past the hint's width: exact re-encode
-        wn = _reencode_bad_rows(wn, x, nvalid, over, cfg,
-                                cfg.max_words(LENGTH), device)
+    over = np.nonzero(nw > cap)[0]  # rows past the hint's width re-encode
+    wn = _reencode_rows(wn, over, x[over], nvalid[over], cfg,
+                        cfg.max_words(LENGTH), device)
     w = -(-wmax // 256) * 256
     wd = torch.from_numpy(np.pad(wn, ((0, 0), (0, w - wn.shape[1])))
                           .view(np.int32)).to(device)

@@ -17,10 +17,9 @@ Split of responsibilities:
   words joined by prefix sums), on the segment-major arrays the codec
   holds. Both kernels store at final offsets, so there is no staging or
   placement pass.
-* long segments (nEDM 81920, NOPTREX 500000 samples): the encode splits
-  each segment into P sub-blocks across threads and merges the sub-streams
-  at bit offsets in one concentration (B3 or B5); the decode can split each
-  stream speculatively (B9 + B6, ``DELTARICE_TPU_SPLIT_DECODE=1``).
+* long segments (nEDM 81920, NOPTREX 500000 samples) encode whole through
+  B1, as short ones do; the decode can split each stream speculatively
+  (B9 + B6, ``DELTARICE_TPU_SPLIT_DECODE=1``).
 * host (numpy + the native C helpers): the variable-length framing — the
   header walk and the ragged gather / scatter at memcpy speed.
 * windows: ``*_dispatch`` queues a batch's copies in (from pinned staging),
@@ -28,8 +27,8 @@ Split of responsibilities:
   current stream without waiting, and records a CUDA event; ``*_collect``
   waits on that event only, so it never waits for a later window's kernels
   (the h5 layer's one-window-deep pipeline). What collect must still run on
-  the card (the split merge, over-cap re-encodes, re-decodes of flagged
-  segments, verification) runs on a second stream.
+  the card (over-cap re-encodes, re-decodes of flagged segments,
+  verification) runs on a second stream.
 
 Every entry point takes ``device``; a ``"cpu"`` device runs the kernels'
 plain torch versions, with no pinning and no events. Words are int32
@@ -47,9 +46,7 @@ import torch
 
 from . import tracing
 from .config import RiceConfig
-from .ops.concentrate import concentrate
 from .ops.pack_cuda import pack_encode
-from .ops.pack_ref import as_i32, as_u32
 from .ops.prefilter import prefilter_decode, prefilter_encode
 from .ops.split_decode import decode_split_parts, unpack_decode_split
 from .ops.unpack_cuda import unpack_decode
@@ -59,7 +56,7 @@ _WORD_BUCKET = 256  # decode pads segment word counts up to a multiple of this
 
 def encode_segments(x, nvalid, cfg: RiceConfig, max_words: int,
                     device="cuda"):
-    """Encode padded segments.
+    """Encode padded segments of any length, each whole through B1.
 
     Args:
       x: (num_segments, L) int16 (array or tensor), zero-padded past each
@@ -73,37 +70,20 @@ def encode_segments(x, nvalid, cfg: RiceConfig, max_words: int,
       (words (num_segments, max_words) int32 uint32 bit patterns,
        nwords (num_segments,) int32), both on ``device``.
     """
-    words, nwords, _ = encode_segments_bits(x, nvalid, cfg, max_words,
-                                            device=device)
-    return words, nwords
-
-
-def encode_segments_bits(x, nvalid, cfg: RiceConfig, max_words: int,
-                         prev0=None, prefiltered: bool = False,
-                         device="cuda"):
-    """:func:`encode_segments` plus exact per-stream bit counts and an
-    optional initial delta state (``prev0``, delta filter only: the
-    sample before each segment) — what the sub-block split needs (streams
-    concatenate at bit offsets; delta chains continue across blocks).
-    ``prefiltered`` takes ``x`` as already pre-filtered values and skips the
-    filter (the generic-FIR split filters over a halo before splitting).
-    Returns (words, nwords, nbits) on ``device``."""
     with tracing.span("encode_segments", words=max_words) as sp:
         with tracing.span("stage"):
             x = _on(x, device, torch.int16)
             nv = _on(nvalid, device, torch.int32)
-            p0 = None if prev0 is None else _on(prev0, device, torch.int32)
         if sp is not None:
             sp.rows, sp.length = x.shape
         tracing.counters["rows_encoded"] += x.shape[0]
-        diff = cfg.is_delta and not prefiltered
-        if not cfg.is_delta and p0 is not None:
-            raise ValueError("prev0 is only supported for the delta filter")
-        if not cfg.is_delta and not prefiltered:
+        if not cfg.is_delta:
             tracing.counters["rows_prefiltered"] += x.shape[0]
             with tracing.span("prefilter"), tracing.device("prefilter", x):
                 x = prefilter_encode(x, cfg.filt)
-        return pack_encode(x, nv, p0, cfg.k, diff, max_words)
+        words, nwords, _nbits = pack_encode(x, nv, None, cfg.k, cfg.is_delta,
+                                            max_words)
+        return words, nwords
 
 
 def _split_decode_enabled() -> bool:
@@ -296,19 +276,18 @@ def _words_hint(x: np.ndarray, cfg: RiceConfig, length: int) -> int:
     return min(cap, full)
 
 
-def _reencode_bad_rows(words_np: np.ndarray, x: np.ndarray,
-                       nvalid: np.ndarray, bad, cfg: RiceConfig,
-                       max_words: int, device) -> np.ndarray:
-    """Exactly re-encode the rows flagged in ``bad`` at ``max_words``
-    width, in place. ``words_np`` must be wide enough for every row's true
-    word count."""
-    idx = np.nonzero(np.asarray(bad))[0]
+def _reencode_rows(words_np: np.ndarray, idx: np.ndarray, x: np.ndarray,
+                   nvalid: np.ndarray, cfg: RiceConfig, max_words: int,
+                   device) -> np.ndarray:
+    """Exactly re-encode rows ``idx`` of ``words_np`` at ``max_words``
+    width, in place, from ``x`` and ``nvalid``, which hold those rows alone
+    (one row each, in the order of ``idx``). ``words_np`` must be wide
+    enough for every row's true word count."""
     if idx.size == 0:
         return words_np
     tracing.counters["rows_reencoded"] += idx.size
     with tracing.span("reencode", rows=idx.size):
-        wfix, _nw = encode_segments(x[idx], nvalid[idx], cfg, max_words,
-                                    device)
+        wfix, _nw = encode_segments(x, nvalid, cfg, max_words, device)
         if not words_np.flags.writeable:
             words_np = words_np.copy()
         words_np[idx] = _host_words(wfix[:, : words_np.shape[1]])
@@ -318,252 +297,6 @@ def _reencode_bad_rows(words_np: np.ndarray, x: np.ndarray,
 def _host_words(words: torch.Tensor) -> np.ndarray:
     """Device int32 bit patterns -> host uint32 array."""
     return words.cpu().numpy().view(np.uint32)
-
-
-# --- sub-block-split encode for long segments ---------------------------
-#
-# A Rice stream is a bit concatenation of per-sample codewords, and the
-# delta filter's only cross-sample state is the previous sample, so a long
-# segment encodes as P independent sub-blocks across threads (each seeded
-# with its predecessor's last sample) whose sub-streams then concatenate at
-# bit offsets, byte-identical to the serial pass. The policy and layout are
-# the JAX package's (``deltarice_tpu/codec.py:473-560``).
-
-_SPLIT_MIN_SUB = 8192    # don't split below this sub-block length
-_SPLIT_PACKED = 1 << 15  # sub-block length that keeps placement packed
-_LANE_TARGET = 1024      # one full TPU kernel block of lanes
-
-
-def _split_parts(nseg: int, length: int, cfg: RiceConfig) -> int:
-    """Sub-blocks per segment (1 = no split); ``nseg`` is the segments of
-    one chunk."""
-    if length < 2 * _SPLIT_MIN_SUB:
-        return 1
-    parts = 1
-    # fill the lane grid, then keep halving until the slot axis is packed
-    while (length // (2 * parts) >= _SPLIT_MIN_SUB
-           and (nseg * 2 * parts <= _LANE_TARGET
-                or length // parts >= _SPLIT_PACKED)):
-        parts *= 2
-    return parts
-
-
-def _split_layout(padded: np.ndarray, nvalid: np.ndarray, parts: int,
-                  halo: int = 0):
-    """(rows, L) -> ((rows*parts, halo+Ls), per-sub nvalid, per-sub prev0,
-    Ls).
-
-    ``halo`` leading samples per sub-block carry the predecessor's tail
-    (zeros for the first block) — what a generic causal FIR pre-filter
-    needs to produce the serial pass's outputs at block starts; the delta
-    path uses ``prev0`` (its entire recurrence state) instead.
-    """
-    rows, length = padded.shape
-    ls = -(-length // parts)
-    xp = padded
-    if parts * ls != length or halo:
-        xp = np.zeros((rows, halo + parts * ls), padded.dtype)
-        xp[:, halo : halo + length] = padded
-        if halo:
-            x3 = np.lib.stride_tricks.sliding_window_view(
-                xp, halo + ls, axis=1
-            )[:, ::ls][:, :parts]
-        else:
-            x3 = xp[:, halo:].reshape(rows, parts, ls)
-    else:
-        x3 = xp.reshape(rows, parts, ls)
-    prev0 = np.zeros((rows, parts), np.int32)
-    prev0[:, 1:] = x3[:, :-1, -1]
-    nv = np.clip(
-        nvalid[:, None] - np.arange(parts, dtype=np.int64)[None, :] * ls,
-        0, ls,
-    ).astype(np.int32)
-    return (np.ascontiguousarray(x3.reshape(rows * parts, halo + ls)),
-            nv.reshape(-1), prev0.reshape(-1), ls)
-
-
-def _encode_split_rows(padded2d: np.ndarray, nvalid_rows: np.ndarray,
-                       cfg: RiceConfig, parts: int, device):
-    """Sub-block-split encode of (rows, L) at rate 1: (words, nwords, nbits,
-    sub_length) on ``device``, one row per sub-block, words zero past each
-    sub-stream. Delta seeds each block with its predecessor's last sample;
-    generic FIR filters each block over a (ntaps-1)-sample halo of
-    preceding raw samples — both reproduce the serial filter outputs
-    exactly, so the merged stream is byte-identical."""
-    if cfg.is_delta:
-        with tracing.span("split_layout"):
-            xs, nv, p0, ls = _split_layout(padded2d, nvalid_rows, parts)
-        w, nw, nb = encode_segments_bits(xs, nv, cfg, cfg.max_words(ls),
-                                         prev0=p0, device=device)
-    else:
-        halo = len(cfg.filt) - 1
-        with tracing.span("split_layout"):
-            xs, nv, _p0, ls = _split_layout(padded2d, nvalid_rows, parts,
-                                            halo)
-        tracing.counters["rows_prefiltered"] += xs.shape[0]
-        with tracing.span("prefilter"):
-            xs = _on(xs, device, torch.int16)
-            with tracing.device("prefilter", xs):
-                d = prefilter_encode(xs, cfg.filt)
-        w, nw, nb = encode_segments_bits(d[:, halo:], nv, cfg,
-                                         cfg.max_words(ls), prefiltered=True,
-                                         device=device)
-    return w, nw, nb, ls
-
-
-def _merge_device(words3: torch.Tensor, nbits2: torch.Tensor,
-                  out_w: int) -> torch.Tensor:
-    """Device sub-stream merge (``deltarice_tpu/codec.py:563-639``):
-    shifted-OR concatenation at bit offsets as ONE concentration.
-
-    Pre-shifting part p's words by its start-bit remainder r gives
-    ``sh[j] = src[j] >> r | src[j-1] << (32-r)``, whose word j lands at
-    output word ``w0_p + j`` — a displacement constant per part. Each
-    part's boundary tail word, which shares an output word with its
-    successor, is pre-ORed into the successor's first shifted word
-    (bit-disjoint by the packer's zero fill); where the successor starts
-    word-aligned, or there is none, the tail extends the part's own run
-    instead. Every output word then has exactly one source element.
-
-    words3: (rows, parts, w_in) int32 bit patterns, zero past each stream
-    and w_in above every part's last output word (see
-    :func:`merge_substreams_device`); nbits2: (rows, parts) exact bit
-    counts; every valid part but each row's last must span >= 2 output
-    words. Returns (rows, out_w) int32 bit patterns.
-    """
-    rows, parts, w_in = words3.shape
-    nb = nbits2.to(torch.int64)
-    base = torch.cumsum(nb, dim=1) - nb
-    w0 = base >> 5
-    r2 = base & 31
-    r = r2[:, :, None]
-    src = as_u32(words3)
-    prev = torch.nn.functional.pad(src[:, :, :-1], (1, 0))
-    sh = torch.where(r == 0, src,
-                     ((src >> r) | (prev << ((32 - r) & 31))) & 0xFFFFFFFF)
-    m_a = ((base + nb - 1) >> 5) - w0  # whole-word run (tail excluded)
-    valid = nb > 0
-    in_row = (m_a >= 0) & (m_a < w_in)
-    tails = torch.gather(sh, 2, m_a.clamp(0, w_in - 1)[:, :, None])[:, :, 0]
-    tails = torch.where(in_row, tails, 0)
-    # carry[p] = nearest preceding valid part's tail (skips empty parts)
-    carry = torch.zeros_like(tails)
-    c = torch.zeros_like(tails[:, 0])
-    for p in range(parts):
-        carry[:, p] = c
-        c = torch.where(valid[:, p], tails[:, p], c)
-    # extend[p]: keep the tail in part p's own run — the next valid part
-    # starts word-aligned or doesn't exist
-    extend = torch.zeros_like(valid)
-    nxt_aligned = torch.ones_like(valid[:, 0])
-    for p in reversed(range(parts)):
-        extend[:, p] = nxt_aligned
-        nxt_aligned = torch.where(valid[:, p], r2[:, p] == 0, nxt_aligned)
-    extend &= valid
-    sh[:, :, 0] |= torch.where(valid & (r2 != 0), carry, 0)
-    j_idx = torch.arange(w_in, device=words3.device)[None, None, :]
-    m3 = m_a[:, :, None]
-    valid_a = valid[:, :, None] & ((j_idx < m3)
-                                   | (extend[:, :, None] & (j_idx == m3)))
-    p_idx = torch.arange(parts, device=words3.device)[None, :]
-    disp_a = torch.where(valid_a, (p_idx * w_in - w0)[:, :, None], -1)
-    return concentrate(as_i32(sh).reshape(rows, parts * w_in),
-                       disp_a.to(torch.int32).reshape(rows, parts * w_in),
-                       out_w)
-
-
-def merge_substreams_device(words: torch.Tensor, nbits2: np.ndarray,
-                            parts: int):
-    """Merge sub-streams on the device: (merged uint32 (rows, maxw) on the
-    host, nwords) — or None when a middle sub-stream holds fewer than 32
-    bits (the merge needs whole words there; the split layout only makes
-    that for a segment's last sub-block, but callers of the public host
-    merge may not). ``words`` is the (rows*parts, W) split-encode output;
-    only about the compressed bytes cross to the host.
-
-    The shifted plane is one word wider than the widest sub-stream, so a
-    part whose bits fill its last word's phase-shifted spill keeps its tail
-    (the JAX package sizes it to the widest sub-stream alone).
-    """
-    nb = np.ascontiguousarray(nbits2, dtype=np.int64)
-    nz = nb > 0
-    if nz.any():
-        # every valid part except each row's last must span >= 2 output
-        # words (its boundary word must not also be its first)
-        base = np.cumsum(nb, axis=1) - nb
-        m_a = ((base + nb - 1) >> 5) - (base >> 5)
-        idx = np.arange(nb.shape[1])[None, :]
-        last_nz = nb.shape[1] - 1 - np.argmax(nz[:, ::-1], axis=1)
-        if (nz & (m_a < 1) & (idx != last_nz[:, None])).any():
-            return None
-    w3, nbt, out_w, nwords = _merge_inputs(words, nb, parts)
-    maxw = int(nwords.max(initial=0))
-    return _host_words(_merge_device(w3, nbt, out_w)[:, :maxw]), nwords
-
-
-def _merge_inputs(words: torch.Tensor, nb: np.ndarray, parts: int):
-    """What :func:`_merge_device` takes for the split-encode output
-    ``words`` (rows*parts, W) and its (rows, parts) int64 bit counts ``nb``:
-    (words3 (rows, parts, w_in), bit counts on the device, out_w, merged
-    word counts (rows,) on the host)."""
-    rows = nb.shape[0]
-    nwords = (nb.sum(axis=1) + 31) >> 5
-    maxw = int(nwords.max(initial=0))
-    out_w = max(-(-(maxw + 1) // _WORD_BUCKET) * _WORD_BUCKET, parts)
-    sub = int((nb.max(initial=0) + 31) >> 5)
-    w = -(-(sub + 1) // _WORD_BUCKET) * _WORD_BUCKET
-    w3 = words[:, : min(w, words.shape[1])]
-    if w3.shape[1] < w:
-        w3 = torch.nn.functional.pad(w3, (0, w - w3.shape[1]))
-    return (w3.reshape(rows, parts, w), torch.from_numpy(nb).to(words.device),
-            out_w, nwords)
-
-
-def merge_substreams(words3: np.ndarray, nbits2: np.ndarray):
-    """Concatenate per-sub-block word streams at bit offsets (host side).
-
-    words3: (rows, P, W) uint32 packed sub-streams, zero beyond each
-      stream's words (the packer's zero fill makes the shifted OR
-      collision-free).
-    nbits2: (rows, P) exact bit lengths.
-
-    Returns (merged (rows, max_words) uint32, nwords (rows,) int64) —
-    byte-identical to serially encoding each row's full waveform. Runs in
-    the native C library (OpenMP) when built, numpy otherwise.
-    """
-    rows, parts, w_in = words3.shape
-    nb64 = np.ascontiguousarray(nbits2, dtype=np.int64)
-    nwords = (nb64.sum(axis=1) + 31) >> 5
-    maxw = int(nwords.max(initial=0))
-    out = np.zeros((rows, maxw + 1), dtype=np.uint32)
-    from .native import codec_lib
-
-    lib = codec_lib()
-    if lib is not None:
-        words3 = np.ascontiguousarray(words3, dtype=np.uint32)
-        lib.dr_merge_substreams(words3.ctypes.data, rows, parts, w_in,
-                                nb64.ctypes.data, maxw + 1, out.ctypes.data)
-        return out[:, :maxw], nwords
-    # each part's words shift by the row's bit phase and OR into place; a
-    # row's columns within one part are distinct, and words past a stream
-    # are zero, so over-width stores OR zeros into the scratch column
-    base = np.cumsum(nb64, axis=1) - nb64
-    ridx = np.arange(rows)[:, None]
-    for p in range(parts):
-        mmax = int((nb64[:, p].max(initial=0) + 31) >> 5)
-        if mmax == 0:
-            continue
-        w = words3[:, p, :mmax]
-        r = (base[:, p] & 31).astype(np.uint32)[:, None]
-        w0 = (base[:, p] >> 5)[:, None]
-        phase = r != 0
-        lo = np.where(phase, w >> r, w)
-        hi = np.where(phase, w << ((np.uint32(32) - r) & np.uint32(31)),
-                      np.uint32(0))
-        cols = np.minimum(w0 + np.arange(mmax, dtype=np.int64)[None, :], maxw)
-        out[ridx, cols] |= lo
-        out[ridx, np.minimum(cols + 1, maxw)] |= hi
-    return out[:, :maxw], nwords
 
 
 def compress(data, cfg: RiceConfig = RiceConfig(), device="cuda") -> bytes:
@@ -593,12 +326,11 @@ def compress_batch_dispatch(chunks, cfg: RiceConfig = RiceConfig(),
                             device="cuda"):
     """Queue the device encode of a chunk batch and return a handle.
 
-    On a CUDA device the words (or, for a split encode, the sub-stream
-    bit counts the merge needs) are copied into pinned host memory behind
-    the kernels and the handle holds an event recorded after them;
-    :func:`compress_batch_collect` waits on that event only, then frames
-    the streams, so a caller can overlap one window's framing and file I/O
-    with the next window's encode.
+    On a CUDA device the words and their counts are copied into pinned host
+    memory behind the kernels and the handle holds an event recorded after
+    them; :func:`compress_batch_collect` waits on that event only, then
+    frames the streams, so a caller can overlap one window's framing and
+    file I/O with the next window's encode.
     ``collect(dispatch(x)) == compress_batch(x)`` byte for byte.
     """
     with tracing.span("compress_batch_dispatch") as sp:
@@ -606,41 +338,38 @@ def compress_batch_dispatch(chunks, cfg: RiceConfig = RiceConfig(),
         if sp is not None:
             sp.chunks = len(arrs)
         if not arrs:
-            return (arrs, 0, None, None, device, None, 1, None)
+            return (arrs, 0, None, None, device, None)
         total = arrs[0].size
         if any(a.size != total for a in arrs):
             raise ValueError("compress_batch requires equal-sized chunks")
         if total == 0:  # header-only streams, matching the native C codec
-            return (arrs, 0, None, None, device, None, 1, None)
+            return (arrs, 0, None, None, device, None)
         with tracing.span("pad_rows"):
             x2, nv, length = _padded_rows(arrs, total, cfg)
-        parts = _split_parts(_segment_layout(total, cfg)[0], length, cfg)
-        if parts > 1:  # long segments: sub-block split, merged in collect
-            words, nwords, nbits, _ls = _encode_split_rows(x2, nv, cfg, parts,
-                                                           device)
-            if _is_cuda(device):  # the merge needs host bit counts; words stay
-                with tracing.span("pinned_copy"):
-                    nwords, nbits = _pinned_copy(nwords), _pinned_copy(nbits)
-            return (arrs, total, words, nwords, device, nbits, parts,
-                    _window_ready(device))
         with tracing.span("words_hint"):
             cap = _words_hint(x2, cfg, length)
         words, nwords = encode_segments(x2, nv, cfg, cap, device)
         if _is_cuda(device):  # the whole capped width: max(nwords) is unknown
             with tracing.span("pinned_copy"):
                 words, nwords = _pinned_copy(words), _pinned_copy(nwords)
-        return (arrs, total, words, nwords, device, None, 1,
-                _window_ready(device))
+        return (arrs, total, words, nwords, device, _window_ready(device))
 
 
-def _padded_rows(arrs, total: int, cfg: RiceConfig):
-    """Chunks -> (rows (nchunks*nseg, L) int16 zero-padded, nvalid, L)."""
+def _padded_rows(arrs, total: int, cfg: RiceConfig, rows=None):
+    """Chunks -> (rows (nchunks*nseg, L) int16 zero-padded, nvalid, L).
+    ``rows`` (flat row indices) pads those rows alone, in its order."""
     nseg, length, nvalid = _segment_layout(total, cfg)
-    padded = np.zeros((len(arrs), nseg * length), dtype=np.int16)
-    for row, a in zip(padded, arrs):
-        row[:total] = a
-    return (padded.reshape(len(arrs) * nseg, length),
-            np.tile(nvalid, len(arrs)), length)
+    if rows is None:
+        padded = np.zeros((len(arrs), nseg * length), dtype=np.int16)
+        for row, a in zip(padded, arrs):
+            row[:total] = a
+        return (padded.reshape(len(arrs) * nseg, length),
+                np.tile(nvalid, len(arrs)), length)
+    padded = np.zeros((len(rows), length), dtype=np.int16)
+    for row, r in zip(padded, rows):
+        chunk, seg = divmod(int(r), nseg)
+        row[: nvalid[seg]] = arrs[chunk][seg * length:][: nvalid[seg]]
+    return padded, nvalid[np.asarray(rows) % nseg], length
 
 
 def compress_batch_collect(handle, cfg: RiceConfig = RiceConfig(),
@@ -648,11 +377,9 @@ def compress_batch_collect(handle, cfg: RiceConfig = RiceConfig(),
                            retries: int = 2) -> list[bytes]:
     """Fetch and frame the streams of a :func:`compress_batch_dispatch`.
 
-    Waits on the window's event only. Split sub-streams merge on the card
-    when they are there (B3 or B5), and on the host for a CPU device; that
-    merge, over-cap re-encodes and verification run on the collect stream
-    (:func:`_collect_stream`)."""
-    arrs, total, words, nwords, device, nbits, parts, ready = handle
+    Waits on the window's event only. Over-cap re-encodes and verification
+    run on the collect stream (:func:`_collect_stream`)."""
+    arrs, total, words, nwords, device, ready = handle
     if not arrs:
         return []
     if total == 0:
@@ -662,43 +389,26 @@ def compress_batch_collect(handle, cfg: RiceConfig = RiceConfig(),
             with tracing.span("wait"):
                 ready.synchronize()
         with _collect_stream(device):
-            return _frame_collected(arrs, total, words, nwords, device,
-                                    nbits, parts, cfg, verify, retries)
+            return _frame_collected(arrs, total, words, nwords, device, cfg,
+                                    verify, retries)
 
 
-def _frame_collected(arrs, total, words, nwords, device, nbits, parts, cfg,
-                     verify, retries) -> list[bytes]:
+def _frame_collected(arrs, total, words, nwords, device, cfg, verify,
+                     retries) -> list[bytes]:
     nchunks = len(arrs)
     nseg = _segment_layout(total, cfg)[0]
     # word counts first: a CPU device then reads only ~compressed-size words
     nw = nwords.cpu().numpy()
     w = max(int(nw.max(initial=0)), 1)
-    if parts > 1:
-        with tracing.span("merge", rows=nchunks * nseg):
-            nb2 = nbits.cpu().numpy().reshape(nchunks * nseg, parts)
-            if words.device.type == "cpu":
-                wn, nw = merge_substreams(_host_words(words[:, :w]).reshape(
-                    nchunks * nseg, parts, w), nb2)
-            else:
-                words.record_stream(torch.cuda.current_stream())
-                res = merge_substreams_device(words, nb2, parts)
-                if res is None:
-                    # _split_layout makes every sub-block before a segment's
-                    # last non-empty one >= _SPLIT_MIN_SUB samples, so >= 32
-                    # bits
-                    raise RuntimeError("split encode made a middle "
-                                       "sub-stream shorter than one word")
-                wn, nw = res
-    else:
-        cap = words.shape[1]
-        wn = _host_words(words[:, : min(w, cap)])
-        if w > cap:
-            wn = np.pad(wn, ((0, 0), (0, w - cap)))
-        over = nw > cap
-        if over.any():  # rows past the cap re-encode exactly at full bound
-            x2, nv, length = _padded_rows(arrs, total, cfg)
-            wn = _reencode_bad_rows(wn, x2, nv, over, cfg,
-                                    cfg.max_words(length), device)
+    cap = words.shape[1]
+    wn = _host_words(words[:, : min(w, cap)])
+    if w > cap:
+        wn = np.pad(wn, ((0, 0), (0, w - cap)))
+    over = np.nonzero(nw > cap)[0]
+    if over.size:  # rows past the cap re-encode exactly at the full bound
+        x2, nv, length = _padded_rows(arrs, total, cfg, over)
+        wn = _reencode_rows(wn, over, x2, nv, cfg, cfg.max_words(length),
+                            device)
     nw = nw.reshape(nchunks, nseg)
     wn = wn.reshape(nchunks, nseg, -1)
     with tracing.span("frame", chunks=nchunks):

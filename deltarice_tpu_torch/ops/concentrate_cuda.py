@@ -4,11 +4,11 @@ increasing along the row), and slots nothing reaches come out zero.
 
 * B3 ``concentrate_packed`` — CUDA kernel ``csrc/concentrate.cu``, the
   counterpart of ``concentrate_packed``: packed ``disp << 16 | halfword``
-  planes, slot axes and displacements below 2^15. The nEDM sub-stream merge
-  takes it (through :mod:`.concentrate`).
+  planes, slot axes and displacements below 2^15. No codec path takes it
+  (the encode merges no sub-streams); :mod:`.concentrate` routes to it.
 * B5 ``concentrate_wide`` — ``csrc/concentrate_wide.cu``, the counterpart
-  of ``_concentrate_wide``: two int32 planes, any width. The NOPTREX
-  sub-stream merge takes it.
+  of ``_concentrate_wide``: two int32 planes, any width. No codec path
+  takes it either.
 * B6 ``concentrate_wide16`` — ``csrc/concentrate_wide.cu``, the
   counterpart of ``concentrate_wide16_plane``: one sign-biased plane. The
   split decode's row merge takes it.

@@ -40,8 +40,8 @@ def pack_encode(x: torch.Tensor, nvalid: torch.Tensor,
       prev0: None or (nseg,) int32 delta state before each segment's first
         sample (``diff`` only).
       k: log2(M), 0..15.
-      diff: apply the wrapping delta filter; False takes already
-        prefiltered int16 values.
+      diff: apply the wrapping delta filter; False takes int16 values
+        already pre-filtered.
       cap: output width; words at or past it are dropped.
 
     Returns:

@@ -10,11 +10,9 @@ Run from the repository root::
 Each config (``bench_config``) encodes and decodes one batch held on the
 device, as the JAX tool does:
 
-* short segments: :func:`..codec.encode_segments` (B1) at the host hint's
-  width (``_words_hint``), rows past it re-encoded exactly;
-* long segments (``_split_parts`` > 1): ``_split_layout`` ->
-  ``encode_segments_bits`` with ``prev0`` (B1 on the sub-blocks) ->
-  ``_merge_device`` (B3 or B5), the merge also timed alone (``merge_ms``);
+* encode: :func:`..codec.encode_segments` (B1) on whole rows of any
+  length at the host hint's width (``_words_hint``), rows past it
+  re-encoded exactly;
 * decode: :func:`..codec.decode_segments` (B2), or with
   ``DELTARICE_TPU_SPLIT_DECODE=1`` the split decode (B9 + B6) where its
   router splits, with ``decode_split_parts`` and ``decode_flagged`` (the
@@ -30,8 +28,10 @@ Timing: CUDA events around ``iters`` calls after a warm-up, the median and
 range of ``reps`` windows (``*_GBps`` the median, ``*_GBps_min`` /
 ``*_GBps_max`` the range).
 
-Dropped from the JAX output (they exist only on the TPU): ``sync_cost_ms``
-and ``decode_service_j`` (the port's B2 is exact at every rate).
+Dropped from the JAX output: ``sync_cost_ms`` and ``decode_service_j``,
+which exist only on the TPU (the port's B2 is exact at every rate), and
+``split_parts`` and ``merge_ms``, the JAX encode's sub-block split of long
+segments and its merge (B1 encodes long rows whole).
 """
 
 from __future__ import annotations
@@ -45,23 +45,18 @@ import torch
 
 from ..codec import (
     _decode_device_split,
-    _merge_device,
-    _merge_inputs,
     _redecode_bad_rows,
-    _reencode_bad_rows,
+    _reencode_rows,
     _split_decode_enabled,
-    _split_layout,
-    _split_parts,
     _words_hint,
     decode_segments,
     encode_segments,
-    encode_segments_bits,
 )
 from ..config import RiceConfig
 from ..ops.split_decode import decode_split_parts
 from ..utils.profiling import NoCard, card, spread, windows
 
-DROPPED = ("sync_cost_ms", "decode_service_j")
+DROPPED = ("sync_cost_ms", "decode_service_j", "split_parts", "merge_ms")
 BUCKET = 256  # decode pads each row's words to a multiple of this
 
 # name -> ((kind, rows, sigma) parts stacked by rows, M, L): the JAX tool's
@@ -105,46 +100,25 @@ def make_config(name: str, rows: int | None = None):
 def encode_config(x: np.ndarray, cfg: RiceConfig, iters: int, reps: int,
                   device) -> dict:
     """The encode half of :func:`bench_config`: {"words" (nseg, W) on the
-    device, "nwords" (nseg,) host, "encode" timing, "parts", and for a
-    split "merge" timing}."""
+    device, "nwords" (nseg,) host, "encode" timing}."""
     nseg, length = x.shape
-    nb = x.nbytes
-    parts = _split_parts(nseg, length, cfg)
-    out = {"parts": parts}
-    if parts > 1:
-        xs, nv, p0, ls = _split_layout(x, np.full(nseg, length, np.int32),
-                                       parts)
-        xd, nvd, p0d = (torch.from_numpy(a).to(device) for a in (xs, nv, p0))
-        mw = cfg.max_words(ls)
-        enc = lambda: encode_segments_bits(xd, nvd, cfg, mw, prev0=p0d,
-                                           device=device)
-        t_sub = windows(enc, iters=iters, reps=reps, device=device)
-        wsub, _nw, nbits = enc()
-        nb2 = nbits.cpu().numpy().astype(np.int64).reshape(nseg, parts)
-        w3, nbt, out_w, nwords = _merge_inputs(wsub, nb2, parts)
-        mrg = lambda: _merge_device(w3, nbt, out_w)
-        t_mrg = windows(mrg, iters=iters, reps=reps, device=device)
-        out["merge"] = spread(t_mrg)
-        # encode = sub-block encode + merge, window by window
-        out["encode"] = spread([a + b for a, b in zip(t_sub, t_mrg)], nb)
-        out["words"], out["nwords"] = mrg(), nwords
-        return out
     xd = torch.from_numpy(x).to(device)
     nvd = torch.full((nseg,), length, dtype=torch.int32, device=device)
     cap = _words_hint(x, cfg, length)
     enc = lambda: encode_segments(xd, nvd, cfg, cap, device)
-    out["encode"] = spread(windows(enc, iters=iters, reps=reps,
-                                   device=device), nb)
+    out = {"encode": spread(windows(enc, iters=iters, reps=reps,
+                                    device=device), x.nbytes)}
     words, nwords = enc()
     nw = nwords.cpu().numpy()
-    over = nw > cap
-    if over.any():  # rows past the hint's width: exact re-encode
+    over = np.nonzero(nw > cap)[0]
+    if over.size:  # rows past the hint's width: exact re-encode
         wmax = int(nw.max()) + 1
         wn = words[:, : min(wmax, cap)].cpu().numpy().view(np.uint32)
         if wmax > cap:
             wn = np.pad(wn, ((0, 0), (0, wmax - cap)))
-        wn = _reencode_bad_rows(wn, x, np.full(nseg, length, np.int32),
-                                over, cfg, cfg.max_words(length), device)
+        nv = np.full(over.size, length, np.int32)
+        wn = _reencode_rows(wn, over, x[over], nv, cfg,
+                            cfg.max_words(length), device)
         words = torch.from_numpy(wn.view(np.int32)).to(device)
     out["words"], out["nwords"] = words, nw
     return out
@@ -200,11 +174,6 @@ def bench_config(name: str, x: np.ndarray, cfg: RiceConfig, iters: int,
         "decode_GBps_max": t_dec["GBps_max"],
         "split_decode": _split_decode_enabled(),
     }
-    if enc["parts"] > 1:
-        row["split_parts"] = enc["parts"]
-        row["merge_ms"] = enc["merge"]["ms"]
-        row["merge_ms_min"] = enc["merge"]["ms_min"]
-        row["merge_ms_max"] = enc["merge"]["ms_max"]
     if sparts > 1:
         row["decode_split_parts"] = sparts
         row["decode_flagged"] = int(bad.sum())

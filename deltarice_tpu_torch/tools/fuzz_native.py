@@ -9,7 +9,7 @@ Run from the repository root::
 
 ``random_case`` draws exactly what ``tools/fuzz_oracle.py:27-48`` draws for
 the same generator: the data distribution, the sample count (63 to 100,000;
-the two long counts drive the split encode and its merge), M (1 to 2^15),
+the two long counts are long segments, encoded whole), M (1 to 2^15),
 the segment length (``-1``: one segment a chunk) and the pre-filter. Each
 case is held three ways, with the split decode switch
 (``DELTARICE_TPU_SPLIT_DECODE``) off and then on:

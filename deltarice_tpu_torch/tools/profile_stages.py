@@ -8,8 +8,8 @@ Run from the repository root::
     python -m deltarice_tpu_torch.tools.profile_stages [nseg length M]
         [--iters I] [--reps R] [--device cuda|cpu]
 
-(defaults 1024 7000 8, the Nab batch; ``1024 81920 16`` is the nEDM shape,
-whose segments split into sub-blocks merged by B3.) The batch is a random
+(defaults 1024 7000 8, the Nab batch; ``1024 81920 16`` is the nEDM
+shape.) The batch is a random
 walk of rounded N(0, 10) steps from ``rng(0)``, as in the JAX tool, and is
 one chunk of ``nseg`` segments. The JSON gives:
 
@@ -18,14 +18,14 @@ one chunk of ``nseg`` segments. The JSON gives:
   batch (median and range of ``reps`` calls);
 * ``copies``: the samples in (``_on``: pinned staging and the copy to the
   card), the words and the decoded samples out (``_pinned_copy``);
-* ``device``: the encode (B1, or for a split the sub-block encode and the
-  merge, B3 or B5) and the decode (B2), each on data resident on the card,
+* ``device``: the encode (B1, on whole rows of any length) and the decode
+  (B2), each on data resident on the card,
   CUDA events around ``iters`` calls in ``reps`` windows; a stage under
   0.1 ms also in a CUDA graph (``graph_ms``);
 * ``passes``: device milliseconds a call of each kernel (``bits_kernel``,
   ``scan_kernel``, ``emit_kernel`` of B1; ``tables_kernel``,
   ``compose_kernel``, ``resolve_kernel``, ``decode_kernel``,
-  ``tail_kernel`` of B2; the merge's concentration and glue) and the
+  ``tail_kernel`` of B2) and the
   device rows of one ``torch.profiler`` repeat of ``iters`` calls a stage.
 
 On the CPU the host stages and the plain versions' host times are
@@ -42,17 +42,12 @@ import numpy as np
 import torch
 
 from ..codec import (
-    _merge_device,
-    _merge_inputs,
     _on,
     _padded_rows,
     _pinned_copy,
-    _split_layout,
-    _split_parts,
     _words_hint,
     decode_segments,
     encode_segments,
-    encode_segments_bits,
     frame_stream,
     gather_segments,
     walk_headers,
@@ -61,8 +56,7 @@ from ..config import RiceConfig
 from ..utils.profiling import NoCard, card, profiled, timed
 
 KERNELS = ("bits_kernel", "scan_kernel", "emit_kernel", "tables_kernel",
-           "compose_kernel", "resolve_kernel", "decode_kernel", "tail_kernel",
-           "concentrate_kernel", "wide_kernel", "wide16_kernel")
+           "compose_kernel", "resolve_kernel", "decode_kernel", "tail_kernel")
 TOP_ROWS = 12  # device rows kept from each profiled stage
 
 
@@ -111,37 +105,19 @@ def run(nseg: int = 1024, length: int = 7000, m: int = 8, iters: int = 20,
     if cuda:
         copies["samples_in"] = timed(lambda: _on(x2, device, torch.int16),
                                      nb, iters, reps, device, graph=False)
-    parts = _split_parts(nseg, length, cfg)
     dev, passes = {}, {}
-    if parts > 1:
-        xs, nvs, p0, ls = _split_layout(x2, nv, parts)
-        xd, nvd, p0d = (torch.from_numpy(a).to(device) for a in (xs, nvs, p0))
-        mw = cfg.max_words(ls)
-        enc = lambda: encode_segments_bits(xd, nvd, cfg, mw, prev0=p0d,
-                                           device=device)
-        wsub, _nw, nbits = enc()
-        nb2 = nbits.cpu().numpy().astype(np.int64).reshape(nseg, parts)
-        w3, nbt, out_w, nwords = _merge_inputs(wsub, nb2, parts)
-        mrg = lambda: _merge_device(w3, nbt, out_w)
-        dev["encode_sub_blocks"] = timed(enc, nb, iters, reps, device)
-        dev["merge"] = timed(mrg, nb, iters, reps, device)
-        if cuda:
-            passes["encode_sub_blocks"] = _passes(enc, iters)
-            passes["merge"] = _passes(mrg, iters)
-        words = mrg()
-    else:
-        xd = torch.from_numpy(x2).to(device)
-        nvd = torch.from_numpy(nv).to(device)
-        cap = _words_hint(x2, cfg, length)
-        enc = lambda: encode_segments(xd, nvd, cfg, cap, device)
-        dev["encode"] = timed(enc, nb, iters, reps, device)
-        if cuda:
-            passes["encode"] = _passes(enc, iters)
-        words, nwords = enc()
-        nwords = nwords.cpu().numpy()
-        if int(nwords.max()) > cap:
-            raise RuntimeError("a row overflowed the hint's width; profile "
-                               "a batch the hint covers")
+    xd = torch.from_numpy(x2).to(device)
+    nvd = torch.from_numpy(nv).to(device)
+    cap = _words_hint(x2, cfg, length)
+    enc = lambda: encode_segments(xd, nvd, cfg, cap, device)
+    dev["encode"] = timed(enc, nb, iters, reps, device)
+    if cuda:
+        passes["encode"] = _passes(enc, iters)
+    words, nwords = enc()
+    nwords = nwords.cpu().numpy()
+    if int(nwords.max()) > cap:
+        raise RuntimeError("a row overflowed the hint's width; profile "
+                           "a batch the hint covers")
     if cuda:
         copies["words_out"] = timed(lambda: _pinned_copy(words), None,
                                     iters, reps, device, graph=False)
@@ -167,7 +143,7 @@ def run(nseg: int = 1024, length: int = 7000, m: int = 8, iters: int = 20,
         raise RuntimeError("profile_stages: the round trip is not exact")
     return {"metric": "per-stage time of one batch's encode and decode",
             "batch": [nseg, length], "m": m, "MB": nb / 1e6,
-            "split_parts": parts, "words_in": int(wd.shape[1]),
+            "words_in": int(wd.shape[1]),
             "ratio": 4 * (1 + nseg + int(np.sum(nwords))) / nb,
             "iters": iters, "reps": reps, "host": host,
             "copies": copies or None, "device": dev,

@@ -28,9 +28,9 @@ With it on:
 :data:`counters` are always on: rows encoded and encoded again past the
 word cap, rows decoded and decoded again after the split decode flagged
 them, ``rows_prefiltered`` and ``rows_prefilter_inverted``, the rows
-(sub-blocks of a split segment each) through the generic pre-filter's
-forward FIR and its inverse (never the delta, which B1 and B2 fuse),
-chunks re-encoded by verification, calls dropped from the ring, and
+through the generic pre-filter's forward FIR and its inverse (never the
+delta, which B1 and B2 fuse), chunks re-encoded by verification, calls
+dropped from the ring, and
 ``tiles_rejoined``, the tiles that B2's check walked again from their
 true entry phase (``csrc/unpack.cu``). That one the kernels add on the
 card, to a device scalar that no call reads back: :func:`snapshot` reads

@@ -84,8 +84,9 @@ def test_dispatch_collect_equals_batch():
 
 
 def test_long_segment_encodes_serially_to_the_split_bytes():
-    # both packages split a 20000-sample segment into sub-streams and
-    # merge them at bit offsets — the bytes of the serial encode
+    # the JAX package splits a 20000-sample segment into sub-streams and
+    # merges them at bit offsets; the port encodes it whole through B1, and
+    # both give the bytes of the serial encode
     cfg, jcfg = _cfg((8,))
     x = _nab(1, 20000, 5)[0]
     assert jcodec._split_parts(1, 20000, jcfg) > 1
@@ -135,13 +136,6 @@ def test_segment_api_matches_jax():
     jw, jn = drt.encode_segments(x, nv, jcfg, 320)
     np.testing.assert_array_equal(words.numpy().view(np.uint32), np.asarray(jw))
     np.testing.assert_array_equal(nwords.numpy(), np.asarray(jn))
-    p0 = np.random.default_rng(8).integers(-32768, 32768, 5).astype(np.int32)
-    w2, n2, b2 = codec.encode_segments_bits(x, nv, cfg, 320, prev0=p0,
-                                            device=CPU)
-    jw2, jn2, jb2 = jcodec.encode_segments_bits(x, nv, jcfg, 320, "auto", p0)
-    np.testing.assert_array_equal(w2.numpy().view(np.uint32), np.asarray(jw2))
-    np.testing.assert_array_equal(n2.numpy(), np.asarray(jn2))
-    np.testing.assert_array_equal(b2.numpy(), np.asarray(jb2))
     out = dt.decode_segments(np.asarray(jw), 256, cfg, device=CPU)
     assert out.dtype == torch.int16 and out.shape == (5, 256)
     np.testing.assert_array_equal(out.numpy(), np.asarray(

@@ -713,7 +713,8 @@ def test_long_chunk_round_trip_matches_native(cuda, name, merge, monkeypatch):
     _kernels.reset_launches()
     stream = dt.compress_batch([chunk], cfg, device="cuda")[0]
     assert stream == native_compress(chunk, cd)
-    assert _kernels.launches[merge] == 1
+    # B1 encodes the rows whole: no sub-stream merge runs
+    assert _kernels.launches[merge] == 0
     assert _kernels.launches["pack_encode"] == 1
     monkeypatch.delenv("DELTARICE_TPU_SPLIT_DECODE", raising=False)
     assert np.array_equal(dt.decompress(stream, cfg, device="cuda"),
@@ -833,14 +834,6 @@ def test_decode_staging_concentrates_to_the_samples(cuda, mode):
             (p,), length, sb, bias=mode == "bias"), *planes)
     _assert_same(got, want)
     assert torch.equal(untile(want, nseg, sb)[:, :length], x)
-
-
-def test_split_encode_on_the_card_never_merges_on_the_host(cuda,
-                                                          monkeypatch):
-    chunk, cfg = _long_chunk("nedm")
-    monkeypatch.setattr(codec, "merge_substreams_device", lambda *a: None)
-    with pytest.raises(RuntimeError, match="middle sub-stream"):
-        dt.compress_batch([chunk], cfg, device="cuda")
 
 
 class _Plist:
@@ -1431,8 +1424,8 @@ def _verify_chunks(name):
 def test_verify_retry_on_the_card(cuda, name, split, monkeypatch):
     """A transient payload fault and a truncated header, each in one chunk
     of a batch, recover to native ``dr_compress``'s bytes; a persistent
-    fault raises ``RuntimeError``. B1 encodes (nEDM and NOPTREX split,
-    merged by B3 and B5), and the check decodes on the card."""
+    fault raises ``RuntimeError``. B1 encodes whole rows (no merge at
+    nEDM and NOPTREX), and the check decodes on the card."""
     monkeypatch.setenv("DELTARICE_TPU_SPLIT_DECODE", "1" if split else "0")
     chunks, cfg = _verify_chunks(name)
     cd = cfg.to_cd_values()
@@ -1446,10 +1439,8 @@ def test_verify_retry_on_the_card(cuda, name, split, monkeypatch):
         assert got == want, fault
         assert spy.count[0] == len(chunks) + 1
         assert _kernels.launches["pack_encode"] == 2
-        if name != "nab":
-            merge = ("concentrate_packed" if name == "nedm"
-                     else "concentrate_wide")
-            assert _kernels.launches[merge] == 2
+        assert _kernels.launches["concentrate_packed"] == 0
+        assert _kernels.launches["concentrate_wide"] == 0
         if split and name != "nab":
             assert _kernels.launches["split_decode"] >= 1
         _card_still_exact()

@@ -194,13 +194,15 @@ def test_leftover_segment_with_a_generic_filter_matches_jax():
                                                       "split-on"])
 def test_long_segment_generic_filter_takes_the_halo_split(split,
                                                           monkeypatch):
-    """One 16384-sample segment a chunk: the encode splits it in two
-    sub-blocks whose FIR halo carries the filter's history across the cut;
-    the decode inverts after B2, or after the split decode's merge."""
+    """One 16384-sample segment a chunk, which the JAX package's encode
+    splits in two sub-blocks whose FIR halo carries the filter's history
+    across the cut: the port filters and encodes the whole row to the same
+    bytes; the decode inverts after B2, or after the split decode's
+    merge."""
     filt = (1, -1, 0, 1)
     cfg, jcfg, cd = _cfgs(8, 16384, filt)
     x = get_profile("noptrex").synthetic(2, seed=3)[:, :16384].copy()
-    assert codec._split_parts(1, 16384, cfg) == 2
+    assert jcodec._split_parts(1, 16384, jcfg) == 2
     chunks = [x[0], x[1]]
     streams = dt.compress_batch(chunks, cfg, device=CPU)
     for c, s in zip(chunks, streams):

@@ -100,32 +100,32 @@ def test_header_corruption_recovers(monkeypatch):
 @pytest.mark.parametrize("fault", ["payload", "header"])
 def test_split_chunk_fault_recovers_through_the_host_merge(fault,
                                                            monkeypatch):
-    """A long-segment chunk at the smallest shape the sub-block split
-    takes (one segment of 16384 samples, two sub-blocks merged on the
-    host): the re-encode goes through the split encode and its merge
-    again."""
+    """A long-segment chunk (one segment of 16384 samples, which the JAX
+    package splits in two sub-blocks and merges on the host): the port's
+    verify-retry encodes the failing chunk again whole, as it encoded the
+    batch."""
     x = np.round(np.cumsum(np.random.default_rng(9).normal(0, 6, 16384))
                  ).astype(np.int16)
     chunks = [x, x[::-1].copy()]
     cd = (8, 16384)
-    cfg, _jcfg = _cfg(cd)
+    cfg, jcfg = _cfg(cd)
     nseg, length, _nv = codec._segment_layout(x.size, cfg)
-    assert codec._split_parts(nseg, length, cfg) == 2
+    assert jcodec._split_parts(nseg, length, jcfg) == 2
     want = [native_compress(c, cd) for c in chunks]
     spy = hc.faulty_frames({0}, codec.frame_stream, fault)
     monkeypatch.setattr(codec, "frame_stream", spy)
-    merges = []
-    real_merge = codec.merge_substreams
+    encodes = []
+    real_encode = codec.encode_segments
 
-    def merge_spy(*a):
-        merges.append(a[0].shape)
-        return real_merge(*a)
+    def encode_spy(rows, *a, **k):
+        encodes.append(np.shape(rows))
+        return real_encode(rows, *a, **k)
 
-    monkeypatch.setattr(codec, "merge_substreams", merge_spy)
+    monkeypatch.setattr(codec, "encode_segments", encode_spy)
     got = dt.compress_batch(chunks, cfg, verify=True, device=CPU)
     assert got == want
     assert spy.count[0] == 3  # two chunks, then chunk 0 again
-    assert merges == [(2, 2, merges[0][2]), (1, 2, merges[1][2])]
+    assert encodes == [(2, 16384), (1, 16384)]
 
 
 @pytest.mark.parametrize("fault", ["payload", "header"])

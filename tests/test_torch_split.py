@@ -1,8 +1,10 @@
 """The port's long-segment path against the JAX package, on the CPU.
 
-Sub-block split encode (policy, layout, host and device sub-stream merges),
-the concentration router with B5 and B6, and the speculative split decode
-(B9's plain version, the junction checks and the ragged merge). Inputs are
+The concentration router with B5 and B6, the speculative split decode
+(B9's plain version, the junction checks and the ragged merge), and the
+batch codec on long segments, which the port encodes whole while the JAX
+package splits them into sub-blocks (``tests/test_torch_long_segments.py``
+holds more shapes). Inputs are
 made from numpy seeds and go through both packages; every comparison is
 exact (tolerance 0: the codec is integer and lossless). The kernels' plain
 versions run here because the tensors lie on the CPU; the kernels
@@ -37,7 +39,7 @@ from deltarice_tpu.ops.concentrate_pallas import (
     concentrate_tiled as jax_tiled,
 )
 import deltarice_tpu_torch as dt
-from deltarice_tpu_torch import codec, native
+from deltarice_tpu_torch import codec
 from deltarice_tpu_torch.models import get_profile
 from deltarice_tpu_torch.native import native_compress, native_decompress
 from deltarice_tpu_torch.ops import split_decode as tsplit
@@ -66,127 +68,6 @@ def _t(a):
     """numpy -> torch, uint32 as int32 bit patterns."""
     a = np.ascontiguousarray(a)
     return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
-
-
-# --- split policy and layout ---------------------------------------------
-
-
-@pytest.mark.parametrize("nseg,length,cd,want", [
-    (1024, 7000, (8,), 1),             # short: no split
-    (256, 500000, (8,), 16),           # NOPTREX, whole batch
-    (1024, 81920, (8,), 4),            # nEDM, whole batch -> packed
-    (256, 500000, (8, -1, 3, 1, -2, 1), 16),  # FIR splits too
-    (32, 81920, (16, 81920), 8),       # one nEDM chunk (32, 81920)
-    (32, 500000, (8, 500000), 32),     # one NOPTREX chunk (32, 500000)
-    (3, 30000, (8, 30000), 2),
-])
-def test_split_parts_matches_jax(nseg, length, cd, want):
-    cfg, jcfg = _cfg(tuple(c & 0xFFFFFFFF for c in cd))
-    assert codec._split_parts(nseg, length, cfg) == want
-    assert jcodec._split_parts(nseg, length, jcfg) == want
-
-
-@pytest.mark.parametrize("length,parts,halo", [(40000, 4, 0), (40000, 4, 2),
-                                               (30001, 8, 0), (30001, 8, 3)])
-def test_split_layout_matches_jax(length, parts, halo):
-    x = _walk((3, length), 9.0, length)
-    nv = np.array([length, length - 777, 5000], np.int32)
-    got = codec._split_layout(x, nv, parts, halo)
-    want = jcodec._split_layout(x, nv, parts, halo)
-    for g, w in zip(got[:3], want[:3]):
-        np.testing.assert_array_equal(g, w)
-    assert got[3] == want[3]
-
-
-def test_encode_prefiltered_bits_match_jax():
-    cfg, jcfg = _cfg((8, 256, 3, 1, 0xFFFFFFFE, 1))
-    d = _walk((6, 256), 4.0, 1)
-    nv = np.array([256, 200, 0, 256, 17, 256], np.int32)
-    got = codec.encode_segments_bits(d, nv, cfg, 300, prefiltered=True,
-                                     device=CPU)
-    want = jcodec.encode_segments_bits(jnp.asarray(d), jnp.asarray(nv), jcfg,
-                                       300, "segsum", prefiltered=True)
-    np.testing.assert_array_equal(got[0].numpy().view(np.uint32),
-                                  np.asarray(want[0]))
-    for g, w in zip(got[1:], want[1:]):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-
-
-# --- sub-stream merges -------------------------------------------------------
-
-
-def _substreams(rows, parts, w, seed, lo=70):
-    """Random packed sub-streams, zero past each one's bits (the packer's
-    zero fill), with a short last part, empty parts and an aligned bound
-    (``tests/test_split_encode.py``'s device-merge cases)."""
-    rng = np.random.default_rng(seed)
-    words3 = rng.integers(0, 2**32, (rows, parts, w), dtype=np.uint32)
-    nbits2 = rng.integers(lo, w * 32 - 40, (rows, parts)).astype(np.int64)
-    nbits2[0, -1] = 17
-    nbits2[1, -2:] = 0
-    if parts >= 3:
-        nbits2[2, 0] = ((nbits2[2, 0] + 31) // 32) * 32
-    for r in range(rows):
-        for p in range(parts):
-            nb = int(nbits2[r, p])
-            full, rem = nb // 32, nb & 31
-            if rem:
-                words3[r, p, full] &= np.uint32(0xFFFFFFFF) << np.uint32(
-                    32 - rem)
-            words3[r, p, full + (1 if rem else 0):] = 0
-    return words3, nbits2
-
-
-@pytest.mark.parametrize("use_native", [True, False])
-def test_merge_substreams_matches_jax(use_native, monkeypatch):
-    words3, nbits2 = _substreams(5, 4, 9, 7, lo=0)
-    want, wnw = jcodec.merge_substreams(words3, nbits2)
-    if not use_native:
-        monkeypatch.setattr(native, "_codec_lib", None)
-    got, nw = codec.merge_substreams(words3, nbits2)
-    np.testing.assert_array_equal(got, want)
-    np.testing.assert_array_equal(nw, wnw)
-
-
-@pytest.mark.parametrize("rows,parts,w,seed", [
-    (16, 16, 600, 1), (8, 4, 3000, 2), (32, 8, 130, 3),
-    (4, 16, 2100, 4),  # parts * w >= 2^15: the wide (B5) route
-])
-def test_device_merge_matches_jax(rows, parts, w, seed):
-    words3, nbits2 = _substreams(rows, parts, w, seed)
-    nw = (nbits2.sum(axis=1) + 31) >> 5
-    out_w = -(-max(int(nw.max()) + 1, parts) // 256) * 256
-    got = codec._merge_device(_t(words3), torch.from_numpy(nbits2), out_w)
-    want = np.asarray(jcodec._merge_device(jnp.asarray(words3),
-                                           jnp.asarray(nbits2), out_w, True))
-    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
-    host, _ = jcodec.merge_substreams(words3, nbits2)
-    maxw = int(nw.max())
-    np.testing.assert_array_equal(want[:, :maxw], host)
-
-
-def test_device_merge_keeps_a_full_width_tail():
-    """A sub-stream that fills every word of the widest stream, entered at
-    a bit phase, spills one word further; the merge's shifted plane is one
-    word wider than the widest sub-stream, so that word survives."""
-    rng = np.random.default_rng(0)
-    w = 256
-    words = np.zeros((2, 2 * w), np.uint32)
-    words[0, :2] = rng.integers(0, 2**32, 2, dtype=np.uint32)
-    words[0, 1] &= np.uint32(0xFF000000)
-    words[1, :w] = rng.integers(0, 2**32, w, dtype=np.uint32)
-    nbits2 = np.array([[40, 32 * w]], np.int64)
-    got, nw = codec.merge_substreams_device(_t(words), nbits2, 2)
-    want, wnw = jcodec.merge_substreams(words.reshape(1, 2, 2 * w), nbits2)
-    np.testing.assert_array_equal(got, want)
-    np.testing.assert_array_equal(nw, wnw)
-
-
-def test_device_merge_declines_a_short_middle_part():
-    words3, nbits2 = _substreams(4, 4, 40, 5)
-    nbits2[3, 1] = 20  # a middle part inside one output word
-    words = words3.reshape(16, 40)
-    assert codec.merge_substreams_device(_t(words), nbits2, 4) is None
 
 
 # --- concentration: B5, B6 and the router ------------------------------------
@@ -445,17 +326,29 @@ def test_split_switch_reads_the_jax_variable(monkeypatch):
 
 
 @pytest.mark.parametrize("cd", [
-    (8, 40000),                               # P=4 sub-blocks per segment
-    (8, 40000, 3, 1, 0xFFFFFFFE, 1),          # FIR (1, -2, 1), halo split
+    (8, 40000),                               # JAX: P=4 sub-blocks
+    (8, 40000, 3, 1, 0xFFFFFFFE, 1),          # FIR (1, -2, 1), JAX's halo
     (8, 30000),                               # leftover segment of 20000
 ], ids=["delta", "fir", "leftover"])
 def test_split_compress_batch_matches_jax_and_native(cd, monkeypatch):
+    """Long segments that the JAX package splits into sub-blocks and
+    merges: the port encodes each whole, in one ``encode_segments`` call
+    over every row of the batch, to the same bytes."""
     cfg, jcfg = _cfg(cd)
     x = _walk((2, 40000), 6.0, 11)
     nseg, length, _nv = codec._segment_layout(x.size, cfg)
-    assert codec._split_parts(nseg, length, cfg) > 1
+    assert jcodec._split_parts(nseg, length, jcfg) > 1
     chunks = [x, x[::-1].copy()]
+    calls = []
+    real = codec.encode_segments
+
+    def spy(rows, *a, **k):
+        calls.append(np.shape(rows))
+        return real(rows, *a, **k)
+
+    monkeypatch.setattr(codec, "encode_segments", spy)
     streams = dt.compress_batch(chunks, cfg, device=CPU)
+    assert calls == [(2 * nseg, length)]
     for c, s in zip(chunks, streams):
         assert s == bytes(drt.compress(c, jcfg, method="segsum"))
         assert s == native_compress(c, cd)

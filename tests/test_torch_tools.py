@@ -132,15 +132,16 @@ def test_geometry_row_equals_jax_compress(name):
 
 @pytest.mark.parametrize("name", LONG)
 def test_long_geometry_size_equals_jax_compress(name):
-    """nEDM and NOPTREX at 2 rows: the split encode and its merge (their
-    decode on the CPU steps through every sample, so the tool's full run
-    is left to the card)."""
+    """nEDM and NOPTREX at 2 rows: the encode of whole rows, which the JAX
+    package splits into sub-blocks (their decode on the CPU steps through
+    every sample, so the tool's full run is left to the card)."""
     x, cfg = bench_geometries.make_config(name, 2)
     enc = bench_geometries.encode_config(x, cfg, 1, 1, "cpu")
-    assert enc["parts"] == jcodec._split_parts(2, x.shape[1], cfg) > 1
+    assert set(enc) == {"encode", "words", "nwords"}
+    assert jcodec._split_parts(2, x.shape[1], cfg) > 1
     size = _jax_size(x, cfg.m, cfg.waveform_length)
     assert bench_geometries.compressed_bytes(enc["nwords"]) == size
-    # the merged words frame into the JAX package's stream
+    # the words frame into the JAX package's stream
     words = enc["words"].numpy().view(np.uint32)
     assert codec.frame_stream(x.size, words, enc["nwords"]) == \
         drt.compress(x, drt.RiceConfig(cfg.m, cfg.waveform_length))
@@ -149,7 +150,7 @@ def test_long_geometry_size_equals_jax_compress(name):
 def test_geometry_split_decode_branch(monkeypatch):
     """With the split switch on, a row reports the split decode's parts and
     flags (the router splits only batches of >= 1024 sub-rows, so the part
-    count is forced); its encode splits and merges too."""
+    count is forced); its encode takes whole rows and reports no split."""
     monkeypatch.setenv("DELTARICE_TPU_SPLIT_DECODE", "1")
     monkeypatch.setattr(bench_geometries, "decode_split_parts",
                         lambda nseg, wmax, k: 2)
@@ -157,21 +158,9 @@ def test_geometry_split_decode_branch(monkeypatch):
     row = bench_geometries.bench_config("walk", x, RiceConfig(8, 20000), 1,
                                         1, "cpu")
     assert row["split_decode"] and row["decode_split_parts"] == 2
-    assert row["decode_flagged"] >= 0 and row["split_parts"] == 2
+    assert row["decode_flagged"] >= 0
+    assert not {"split_parts", "merge_ms"} & set(row)
     assert row["compressed_bytes"] == _jax_size(x, 8, 20000)
-
-
-def test_split_parts_equal_jax_at_the_full_shapes():
-    for name, (parts, m, length) in bench_geometries.CONFIGS.items():
-        nseg = sum(n for _k, n, _s in parts)
-        cfg = drt.RiceConfig(m, length)
-        assert codec._split_parts(nseg, length, cfg) == \
-            jcodec._split_parts(nseg, length, cfg), name
-    published = json.loads((REPO / "GEOMETRY_BENCH.json").read_text())
-    for row in published["rows"]:
-        nseg, length = row["shape"]
-        assert codec._split_parts(nseg, length, drt.RiceConfig(
-            row["m"], length)) == row.get("split_parts", 1)
 
 
 # --- bench ---------------------------------------------------------------

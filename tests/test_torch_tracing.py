@@ -557,7 +557,9 @@ def test_batch_and_h5_spans_and_counters(monkeypatch):
 
 
 def test_long_segments_split_spans(monkeypatch):
-    n = 16384  # two sub-blocks of the split encode
+    """A long segment encodes whole: the batch's spans hold no split
+    layout and no merge; its decode takes the split decode (forced on)."""
+    n = 16384
     cfg = dt.RiceConfig(8, n)
     x = _rows(2, n, seed=7)
     monkeypatch.setenv("DELTARICE_TPU_SPLIT_DECODE", "1")
@@ -569,10 +571,12 @@ def test_long_segments_split_spans(monkeypatch):
     snap = tracing.snapshot()
     tree = _tree(snap)
     assert {n for n, p in tree if p == "dr.compress_batch_dispatch"} == {
-        "dr.pad_rows", "dr.split_layout", "dr.encode_segments"}
-    assert ("dr.merge", "dr.compress_batch_collect") in tree
+        "dr.pad_rows", "dr.words_hint", "dr.encode_segments"}
+    assert {n for n, p in tree if p == "dr.compress_batch_collect"} == {
+        "dr.frame"}
+    assert not {n for n, _p in tree} & {"dr.split_layout", "dr.merge"}
     assert ("dr.split_decode", "dr.decode_bucket") in tree
-    assert snap["counters"]["rows_encoded"] == 2 * 2
+    assert snap["counters"]["rows_encoded"] == 2
     assert snap["counters"]["rows_decoded"] == 2
 
 
