@@ -2,7 +2,8 @@
  * split_decode.cu for B9): a cursor stepped through the codewords that
  * start in a run of words, phase 0's record of where it first starts a
  * codeword in each word, the join of a walk from another entry phase
- * with that record, and a walk from an entry phase on its own.
+ * with that record, a walk from an entry phase on its own, and a walk
+ * bounded by a count of codewords that can stop and go on (B2's decode).
  *
  * A decode is a function of the bit it starts at, so two walks through the
  * same words that start a codeword at the same bit agree from there on. A
@@ -46,6 +47,34 @@ __device__ __forceinline__ int walk_words(const Load &load, int b, int lim,
     }
   }
   return b;
+}
+
+/* A walk held between calls of walk_count: its bit b in the run, the word
+ * cur that its window starts at, and the window (words cur .. cur + 2). */
+struct Cursor {
+  int b, cur;
+  uint32_t w0, w1, w2;
+};
+
+/* Walks the next n codewords from c, bounded by that count rather than by
+ * a bit: each is handed to visit(value, i), i = 0 .. n - 1, and c is left
+ * at the codeword after them. load(i) returns word i of the run; the
+ * window moves on as in walk_words. */
+template <class Load, class Visit>
+__device__ __forceinline__ void walk_count(const Load &load, Cursor &c,
+                                           int n, int k, Visit &visit) {
+  for (int i = 0; i < n; ++i) {
+    int len;
+    const uint32_t u = rice_decode(c.w0, c.w1, (unsigned)(c.b & 31), k, &len);
+    visit(unzigzag(u), i);
+    c.b += len;
+    if ((c.b >> 5) != c.cur) {
+      ++c.cur;
+      c.w0 = c.w1;
+      c.w1 = c.w2;
+      c.w2 = load(c.cur + 2);
+    }
+  }
 }
 
 /* What a walk through a run leaves: the exit phase into the next run, the

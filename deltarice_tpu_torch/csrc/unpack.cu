@@ -71,10 +71,21 @@
  *      25-phase tables kept for every segment would need their 200 bytes a
  *      tile, and their composition alone took 0.55 ms of a NOPTREX call on
  *      an H100, more than this whole pass there.)
- *   4. decode: one thread per (segment, tile) decodes the tile from its
- *      entry phase and stores sample n at out[s, first + n], packing four
- *      int16s into one 8-byte store where it owns the whole group (groups
- *      aligned on 8-byte addresses, wherever out starts).
+ *   4. decode: one warp per 32 consecutive tiles, one lane a tile. Tile
+ *      t's samples are out[s, first .. first + count), its codewords'
+ *      count clamped at n_samples: passes 2 and 3 make every first sample
+ *      the sum of the counts before it, so each lane knows where its
+ *      samples go before it decodes one. Lanes decode from their entry
+ *      phase kRound samples a round (the walk bounded by that count, its
+ *      cursor kept in registers from round to round) into their own slot
+ *      of shared memory, each sample at its phase in out's 8-byte words.
+ *      After a __syncwarp the warp stores each lane's round in turn, lane
+ *      u storing its word u: 32 consecutive aligned 8-byte words a store
+ *      (wherever out starts), sample by sample only in a round's first and
+ *      last word. (One thread a tile storing its own samples, four to an
+ *      8-byte store, touched 32 lines some 436 bytes apart a store; on an
+ *      H100 those stores took 67-82 % of the pass at the benchmark's
+ *      planes, and this pass takes 57-73 % less time there.)
  *   5. tail: the cursor of the serial decode is clamped at 32 * (W - 1), as
  *      the reference's scan decoder (ops/pack_xla.py::unpack_bits) clamps
  *      it, so every sample past the last codeword that starts before the
@@ -86,7 +97,8 @@
  * tile, the upper levels' (1/32 of that and less) and 36 bytes a segment.
  * Bound: not bytes.
  * Passes 1 and 4 are each a walk of every codeword of the tile (pass 1
- * also the join's few); passes 2, 3 and 5 are short.
+ * also the join's few, pass 4 only those below n_samples); passes 2, 3
+ * and 5 are short.
  * Words are read segment-major (row s contiguous), samples written
  * segment-major, so the codec needs no transpose around the kernel.
  * dr_unpack_tables keeps the walk from every one of the 25 entry phases
@@ -118,6 +130,13 @@ constexpr int kMapBytes = 32;      // a tile's exit from each entry phase
 constexpr int kMapBlocks = 1024;   // pass 3b's grid
 constexpr int kChainBlock = 1024;  // pass 3c's block
 constexpr int kChainBlocks = 1024; // and its grid, at most
+// pass 4: samples a lane decodes a round, a multiple of 4 (so that a
+// lane's rounds keep one phase in out's 8-byte words) whose round spans at
+// most 32 such words, one a lane; a lane's slot in 8-byte words, one more
+// so that neighbouring lanes' slots start in different banks
+constexpr int kRound = 124;
+constexpr int kSlot = kRound / 4 + 2;
+static_assert(kRound % 4 == 0 && kRound / 4 + 1 == 32, "a word a lane");
 
 /* A tile's entry or an entry state is a uint2: x = codeword count (or first
  * sample index), y = (int16 sum or running value) << 16 | phase. A tile's
@@ -552,65 +571,83 @@ __global__ void __launch_bounds__(kChainBlock)
   }
 }
 
-/* Stores consecutive samples of one thread from flat index gi on (out is
- * 8-byte aligned): a group of four aligned samples that the thread fills
- * whole goes out as one 8-byte store, a partial group (a run's first and
- * last) sample by sample. acc holds the samples [g0, gi) of the group. */
-struct SampleWriter {
-  int16_t *out;
-  int64_t gi, g0;
-  uint64_t acc;
-
-  __device__ void store(int64_t end) {
-    for (int64_t m = g0; m < end; ++m)
-      out[m] = (int16_t)(acc >> (16 * (m & 3)));
-  }
-  __device__ void put(int16_t v) {
-    acc |= (uint64_t)(uint16_t)v << (16 * (gi & 3));
-    if ((gi & 3) == 3) {
-      if (g0 == gi - 3)
-        *reinterpret_cast<uint64_t *>(out + g0) = acc;
-      else
-        store(gi + 1);
-      acc = 0;
-      g0 = gi + 1;
-    }
-    ++gi;
-  }
-  __device__ void finish() { store(gi); }
-};
-
-/* Pass 4: one thread per (segment, tile). */
-__global__ void decode_kernel(const uint32_t *__restrict__ words,
-                              const uint2 *__restrict__ ent,
-                              int16_t *__restrict__ out, int64_t w,
-                              int64_t nseg, int64_t ntiles,
-                              int64_t n_samples, int k, int delta) {
-  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= nseg * ntiles) return;
-  const int64_t s = g / ntiles, t = g % ntiles;
-  const uint2 st = ent[g];
-  const int64_t first = st.x;
-  if (first >= n_samples) return;
-  const int64_t t0 = t * kTileWords;
-  const int lim = tile_bits(t0, w);
-  // the writer indexes from the 8-byte boundary at or before out, ph
-  // samples before it, so its 8-byte stores are aligned wherever out lies
+/* Pass 4: one warp per 32 consecutive tiles (g = s * ntiles + t), one lane
+ * a tile, decoding kRound samples a round into its slot; the warp then
+ * stores each lane's round in turn, lane u its word u. A round's first and
+ * last word, which it may share with the lane's previous and next round,
+ * go sample by sample. */
+__global__ void __launch_bounds__(kBlock)
+    decode_kernel(const uint32_t *__restrict__ words,
+                  const uint2 *__restrict__ ent, const uint2 *__restrict__ tab,
+                  int16_t *__restrict__ out, int64_t w, int64_t nseg,
+                  int64_t ntiles, int64_t n_samples, int k, int delta) {
+  DR_SHARED(uint64_t, slots, [kBlock][kSlot]);
+  DR_SMEM_ENTRY(slots);
+  const int lane = threadIdx.x & 31, warp0 = threadIdx.x - lane;
+  const int64_t total = nseg * ntiles;
+  const int64_t g = (int64_t)blockIdx.x * kBlock + threadIdx.x;
+  if (g - lane >= total) return;  // the whole warp leaves
+  // out from the 8-byte boundary at or before it, ph samples before out
   const int64_t ph = (int64_t)((reinterpret_cast<uintptr_t>(out) >> 1) & 3);
-  const int64_t stop = s * n_samples + n_samples + ph;
-  uint32_t run = st.y >> 16;
-  SampleWriter wr{out - ph, s * n_samples + first + ph,
-                  s * n_samples + first + ph, 0};
-  const uint32_t *row = words + s * w;
-  const auto load = [row, t0, w](int i) { return load_word(row, t0 + i, w); };
-  auto store = [&](int32_t v, int, int) {
-    run = delta ? run + (uint32_t)v : (uint32_t)v;
-    wr.put((int16_t)run);
-    return wr.gi < stop;
+  int16_t *const o16 = out - ph;
+  uint64_t *const o64 = reinterpret_cast<uint64_t *>(o16);
+  uint32_t cnt = 0, run = 0;
+  int64_t q = 0;  // the tile's first sample in o16
+  const uint32_t *tw = words;
+  int left = 0;  // words of the row from the tile's first
+  dr::Cursor c{0, 0, 0u, 0u, 0u};
+  if (g < total) {
+    const int64_t s = g / ntiles, t0 = (g - s * ntiles) * kTileWords;
+    const uint2 st = ent[g];
+    if ((int64_t)st.x < n_samples) {
+      // the next tile of the row starts at st.x + tab[g].x: passes 2 and 3
+      // write every first sample as the sum of the counts before it
+      cnt = (uint32_t)min((int64_t)tab[g].x, n_samples - (int64_t)st.x);
+      q = s * n_samples + (int64_t)st.x + ph;
+      run = st.y >> 16;
+      tw = words + s * w + t0;
+      left = (int)(w - t0);
+      c.b = (int)(st.y & 0xFFu);
+    }
+  }
+  const auto load = [tw, left](int i) {
+    return i < left ? __ldg(tw + i) : 0u;
   };
-  dr::walk_words(load, (int)(st.y & 0xFFu), lim, k, load_word(row, t0, w),
-                 load_word(row, t0 + 1, w), load_word(row, t0 + 2, w), store);
-  wr.finish();
+  if (cnt > 0) {
+    c.w0 = load(0);
+    c.w1 = load(1);
+    c.w2 = load(2);
+  }
+  DR_SMEM_PTR(int16_t) mine = DR_SM_ROW_AS(int16_t, slots, threadIdx.x);
+  const int off = (int)(q & 3);
+  auto put = [&](int32_t v, int i) {
+    run = delta ? run + (uint32_t)v : (uint32_t)v;
+    DR_SM(mine, off + i) = (int16_t)run;
+  };
+  const uint32_t most = __reduce_max_sync(kFull, cnt);
+  for (uint32_t r = 0; r < most; r += kRound) {
+    const int n = cnt > r ? (int)min(cnt - r, (uint32_t)kRound) : 0;
+    dr::walk_count(load, c, n, k, put);
+    DR_SYNCWARP();  // the slots are written
+    const int64_t at = (q >> 2) + (int64_t)(r >> 2);  // the round's word 0
+    const int key = (off << 16) | n;
+    for (int j = 0; j < 32; ++j) {
+      const int64_t aj = __shfl_sync(kFull, at, j);
+      const int kj = __shfl_sync(kFull, key, j);
+      // word lane of lane j's round holds its samples lo .. lo + 3
+      const int nj = kj & 0xFFFF, lo = 4 * lane - (kj >> 16);
+      if (lo + 4 > 0 && lo < nj) {
+        const uint64_t v = DR_SM2(slots, warp0 + j, lane);
+        if (lo >= 0 && lo + 4 <= nj) {
+          o64[aj + lane] = v;
+        } else {
+          for (int m = max(-lo, 0); m < min(nj - lo, 4); ++m)
+            o16[4 * (aj + lane) + m] = (int16_t)(v >> (16 * m));
+        }
+      }
+    }
+    DR_SYNCWARP();  // the slots are read before the next round writes them
+  }
 }
 
 /* Pass 5: one block per segment fills [count of codewords before the
@@ -808,8 +845,8 @@ extern "C" int dr_unpack_decode(const int32_t *words, int16_t *out,
     const int rc =
         queue_entries(wd, base, p, w, nseg, n_samples, k, rejoined, st);
     if (rc != (int)cudaSuccess) return rc;
-    decode_kernel<<<blocks, kBlock, 0, st>>>(wd, ent0, out, w, nseg, ntiles,
-                                            n_samples, k, delta);
+    decode_kernel<<<blocks, kBlock, 0, st>>>(wd, ent0, tab0, out, w, nseg,
+                                            ntiles, n_samples, k, delta);
     DR_LAUNCH_CHECK();
   }
   tail_kernel<<<(unsigned)nseg, kTailBlock, 0, st>>>(

@@ -24,7 +24,10 @@ each segment's start (phase 0, sample 0, value 0) is walked down the
 levels to every tile's entry state (:func:`entry_states`). The serial
 decode clamps its cursor at bit ``32 * (W - 1)``: every sample past the
 last codeword that starts before the clamp re-decodes the codeword there
-(the pad word), which the tail fills arithmetically.
+(the pad word), which the tail fills arithmetically. The decode pass gives
+each warp 32 consecutive tiles, one a lane: lanes decode ``ROUND`` samples
+a round into shared memory, and the warp stores each lane's round as
+consecutive aligned 8-byte words (:func:`write_plan`, :func:`decode_warps`).
 
 Encode. A tile of ``tile`` samples sums its codeword lengths; the
 exclusive prefix sum over a segment's tiles gives each tile's first bit;
@@ -45,6 +48,8 @@ TILE_WORDS = 32   # B2: words per tile
 PHASES = 25       # B2: entry phases 0..24 (a codeword is at most 25 bits)
 GROUP = 32        # B2: tables composed per group
 TILE_SAMPLES = 1024  # B1: samples per tile
+ROUND = 124       # B2's decode pass: samples a lane decodes a round
+WARP = 32         # B2's decode pass: tiles a warp takes, one a lane
 
 _EXIT, _COUNT, _SUM = 0, 1, 2
 
@@ -282,16 +287,140 @@ def decode_tiled(words: torch.Tensor, n_samples: int, k: int,
         last = ent[:, -1].to(torch.int64)
         first_end = states[:, -1, 1] + last[:, _COUNT]
         run_end = states[:, -1, 2] + last[:, _SUM]
-    # the tail: the codeword at the clamp, once per remaining sample
+    return _with_tail(out[:, :n_samples], wu, first_end, run_end, k, delta)
+
+
+def _with_tail(out, wu, first_end, run_end, k, delta):
+    """``out`` (nseg, n_samples) int64 with the tail filled: the codeword at
+    the clamp, once per sample from ``first_end`` on (the running value
+    ``run_end`` before it), wrapped to int16."""
     zero = torch.zeros_like(first_end)
     u, _ = decode_codeword(wu[:, -1], zero, zero, k)
     vc = unzigzag(u).to(torch.int64)
-    i = torch.arange(n_samples, device=dev)[None, :]
+    i = torch.arange(out.shape[1], device=out.device)[None, :]
     reps = i - first_end[:, None] + 1
     tail = run_end[:, None] + reps * vc[:, None] if delta else \
-        vc[:, None].expand(-1, n_samples)
-    out = torch.where(reps > 0, tail, out[:, :n_samples])
-    return wrap16(out).to(torch.int16)
+        vc[:, None].expand(-1, out.shape[1])
+    return wrap16(torch.where(reps > 0, tail, out)).to(torch.int16)
+
+
+def write_plan(first: torch.Tensor, count: torch.Tensor, n_samples: int,
+               ph: int = 0) -> dict:
+    """B2's decode pass, its stores: each 8-byte word that a lane stores.
+
+    Warp ``g // 32`` takes tiles ``g = s * ntiles + t``; tile g's samples
+    are ``out[s, first .. first + count)``, at flat sample ``q = s *
+    n_samples + first + ph`` from out's 8-byte boundary at or before it
+    (``ph`` = out's address / 2 mod 4). Round r of a tile holds its samples
+    ``r * ROUND ..``, at most ``ROUND`` (a multiple of 4, so a round's
+    first sample keeps the phase ``q & 3`` in the words); after the round,
+    the warp stores the rounds of its lanes in turn, lane u storing the
+    round's word ``(q + r * ROUND) // 4 + u``, which holds the round's
+    samples ``lo .. lo + 3`` with ``lo = 4 u - (q & 3)``: all four (one
+    8-byte store, ``full``) or those in ``[0, n)`` (sample by sample).
+
+    Args:
+      first, count: (nseg, ntiles) int64: each tile's first sample and its
+        samples (its codewords clamped at n_samples; 0 past n_samples).
+
+    Returns 1-D int64 tensors, one entry a stored word, in the warps' order
+    (warp, round, the lane whose round it is, u): ``tile``, ``round``,
+    ``lane`` (u), ``word``, ``lo``, ``n`` (the round's samples), ``full``
+    and ``store`` (the warp's store instruction: the same for the words of
+    one warp, round and tile).
+    """
+    nseg, ntiles = first.shape
+    g = torch.arange(nseg * ntiles, dtype=torch.int64)
+    s = g // max(ntiles, 1)
+    first = first.reshape(-1).to(torch.int64)
+    count = count.reshape(-1).to(torch.int64)
+    q = s * n_samples + first + ph
+    rounds = -(-count // ROUND)
+    most = int(rounds.max()) if rounds.numel() else 0
+    r = torch.arange(most, dtype=torch.int64)
+    u = torch.arange(WARP, dtype=torch.int64)
+    n = (count[:, None] - r[None, :] * ROUND).clamp(0, ROUND)    # (g, r)
+    lo = 4 * u[None, None, :] - (q & 3)[:, None, None]           # (g, 1, u)
+    live = (lo + 4 > 0) & (lo < n[..., None])                    # (g, r, u)
+    # the warps' order: warp, round, lane j (the tile), word u
+    gg, rr, uu = (a.reshape(-1) for a in torch.meshgrid(g, r, u,
+                                                      indexing="ij"))
+    order = torch.argsort(((gg // WARP) * most + rr) * WARP * WARP
+                          + (gg % WARP) * WARP + uu)
+    sel = order[live.reshape(-1)[order]]
+    gg, rr, uu = gg[sel], rr[sel], uu[sel]
+    lo = lo.expand(-1, most, -1).reshape(-1)[sel]
+    nn = n[gg, rr]
+    word = (q[gg] + rr * ROUND) // 4 + uu
+    return {"tile": gg, "round": rr, "lane": uu, "word": word, "lo": lo,
+            "n": nn, "full": (lo >= 0) & (lo + 4 <= nn),
+            "store": ((gg // WARP) * most + rr) * WARP + gg % WARP}
+
+
+def store_sectors(plan: dict, base: int = 0) -> torch.Tensor:
+    """The 32-byte sectors that each warp store of :func:`write_plan`
+    covers, ``base`` the 8-byte boundary's byte address mod 32: (stores,)
+    int64, in the order of the stores."""
+    sector = (base + 8 * plan["word"]) // 32
+    store = plan["store"]
+    pairs = torch.unique(torch.stack([store, sector], dim=1), dim=0)
+    _, counts = torch.unique_consecutive(pairs[:, 0], return_counts=True)
+    return counts
+
+
+def decode_warps(words: torch.Tensor, n_samples: int, k: int,
+                 delta: bool = True, ph: int = 0):
+    """The tiled decode with the decode pass as the kernel's warps run it:
+    each tile's entry and state from the model of passes 1-3, its samples
+    decoded from its entry phase as far as its count (its codewords,
+    clamped at n_samples), stored through :func:`write_plan` into a flat
+    buffer that starts ``ph`` samples before out, then the tail. Returns
+    ((nseg, n_samples) int16, (nseg, n_samples) int64: how many times the
+    decode pass stored each sample)."""
+    nseg, w = words.shape
+    flat = torch.zeros(nseg * n_samples + ph + 4, dtype=torch.int64)
+    stored = torch.zeros_like(flat)
+    first_end = torch.zeros(nseg, dtype=torch.int64)
+    run_end = torch.zeros_like(first_end)
+    wu = as_u32(words)
+    if w > 1:
+        ent = decode_entries(words, k, n_samples)[0][..., 1:]
+        states = entry_states(ent).to(torch.int64)
+        ent = ent.to(torch.int64)
+        first = states[..., 1]
+        count = torch.where(first < n_samples,
+                            torch.minimum(ent[..., _COUNT],
+                                          n_samples - first), 0)
+        # each tile's samples, walked from its entry phase
+        start, end = _bounds(w, TILE_WORDS, words.device)
+        most = max(int(count.max()), 1)
+        vals = torch.zeros((nseg, start.numel(), most + 1), dtype=torch.int64)
+        idx = torch.zeros_like(first)
+
+        def visit(active, v):
+            live = active & (idx < count)
+            vals.scatter_(2, torch.where(live, idx, most)[..., None],
+                          v[..., None])
+            idx.add_(live.to(torch.int64))
+
+        _walk(wu, start + states[..., 0], end[None, :], k, visit)
+        vals = vals[..., :most]
+        if delta:
+            vals = wrap16(states[..., 2:3] + vals.cumsum(dim=2))
+        plan = write_plan(first, count, n_samples, ph)
+        tiles = vals.reshape(-1, most)
+        for m in range(4):
+            i = plan["lo"] + m
+            ok = (i >= 0) & (i < plan["n"])
+            at = 4 * plan["word"][ok] + m
+            flat[at] = tiles[plan["tile"][ok], plan["round"][ok] * ROUND
+                             + i[ok]]
+            stored.index_add_(0, at, torch.ones_like(at))
+        first_end = states[:, -1, 1] + ent[:, -1, _COUNT]
+        run_end = states[:, -1, 2] + ent[:, -1, _SUM]
+    out = flat[ph: ph + nseg * n_samples].reshape(nseg, n_samples)
+    return (_with_tail(out, wu, first_end, run_end, k, delta),
+            stored[ph: ph + nseg * n_samples].reshape(nseg, n_samples))
 
 
 def encode_tiled(x: torch.Tensor, nvalid: torch.Tensor, prev0, k: int,

@@ -6,9 +6,9 @@ Layout: ``words`` is (nseg, W) segment-major and the samples come back as
 (nseg, n_samples), the codec's own layout. :mod:`.tiled_model` is the plain
 model of the kernel's passes (one entry a tile from its assumed entry
 phase, checked and repaired; their composition; the decode from resolved
-phases); :func:`unpack_decode_plain` is the serial oracle. The tiles that
-the check walks again add to the device counter ``tiles_rejoined``
-(``tracing.snapshot()`` reads it).
+phases, and the warps' stores of it); :func:`unpack_decode_plain` is the
+serial oracle. The tiles that the check walks again add to the device
+counter ``tiles_rejoined`` (``tracing.snapshot()`` reads it).
 """
 
 from __future__ import annotations

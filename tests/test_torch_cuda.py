@@ -50,7 +50,8 @@ from deltarice_tpu_torch.ops.split_decode_cuda import (
     split_decode_passes,
 )
 from deltarice_tpu_torch.ops.tiled_model import decode_entries, decode_tiled
-from deltarice_tpu_torch.ops.unpack_cuda import unpack_decode, unpack_tables
+from deltarice_tpu_torch.ops.unpack_cuda import (
+    unpack_decode, unpack_decode_plain, unpack_tables)
 import hostile_cases as hc
 import plain_codec
 from prefilter_cases import EDGES, GRID, blocked_grid, grid_filter, samples
@@ -368,6 +369,97 @@ def test_unpack_decode_never_joining_noptrex_row_and_misaligned_out(cuda):
     assert rejoined == 2 * (ntiles - 2)
     assert torch.equal(ent[:, 2:, 0].cpu(), torch.tensor([[1], [2]]).expand(
         2, ntiles - 2).to(torch.int32))
+
+
+def _b2_first_samples(words, n_samples, k):
+    """Level 0 of a decode's scratch on the card: each tile's codewords (as
+    walked from the phase it was walked from) and its first sample, both
+    (nseg, ntiles) int64 (layout in ``csrc/unpack.cu``'s ``plan``)."""
+    nseg, w = words.shape
+    ntiles = max(-(-(w - 1) // 32), 0)
+    lib = _kernels.library()
+    nbytes = lib.dr_unpack_scratch_bytes(w, nseg)
+    scratch = torch.empty(max(nbytes, 1), dtype=torch.uint8,
+                          device=words.device)
+    out = torch.empty((nseg, n_samples), dtype=torch.int16,
+                      device=words.device)
+    counter = torch.zeros((), dtype=torch.int64, device=words.device)
+    rc = lib.dr_unpack_decode(
+        words.data_ptr(), out.data_ptr(), scratch.data_ptr(), nbytes, w, nseg,
+        n_samples, k, 1, counter.data_ptr(), _kernels.stream())
+    assert rc == 0
+    level = nseg * ntiles * 8
+    tab = scratch[:level].view(torch.int32).view(nseg, ntiles, 2)
+    ent = scratch[level: 2 * level].view(torch.int32).view(nseg, ntiles, 2)
+    as_u32 = lambda t: t.cpu().to(torch.int64) & 0xFFFFFFFF  # noqa: E731
+    return as_u32(tab[..., 0]), as_u32(ent[..., 0])
+
+
+@pytest.mark.parametrize("k", [0, 3, 15])
+def test_b2_first_samples_are_the_sums_of_the_counts(cuda, k):
+    """What B2's decode pass reads of passes 1-3: below n_samples each
+    tile's first sample plus its codewords is the next tile's first sample
+    (the pass takes a tile's sample count from its entry), also where the
+    check walked tiles again and where the streams never join; the decode
+    equals the plain one."""
+    for words, n in _entries_cases(k):
+        wc = words.cuda()
+        count, first = _b2_first_samples(wc, n, k)
+        below = first[:, :-1] < n
+        assert torch.equal((first[:, :-1] + count[:, :-1])[below],
+                           first[:, 1:][below]), n
+        _assert_same(*_both(unpack_decode, words, n, k, True))
+
+
+def _warp_rows(k, tiles, seed=11):
+    """Streams of 32 * tiles + 1 words (cut where longer) for B2's decode
+    pass by warps: Nab rows, escape-heavy rows (escapes alone at small k),
+    a constant row (every tile at 1024 / (k + 1) samples), a short and an
+    empty segment."""
+    x = np.concatenate([_nab(20, 3000, seed), _escape_heavy(6, 3000, seed)])
+    x[5] = 321
+    nv = np.full(26, 3000, np.int32)
+    nv[3], nv[7] = 0, 1234
+    words, _, _ = pack_encode(torch.from_numpy(x), torch.from_numpy(nv),
+                              None, k, True, 32 * tiles + 1)
+    return words
+
+
+@pytest.mark.parametrize("tiles", [1, 31, 33, 40])
+@pytest.mark.parametrize("k", [0, 3, 15])
+def test_unpack_decode_across_warps_and_misaligned_out_match_plain(
+        cuda, k, tiles):
+    """B2's decode pass stores a warp's 32 tiles through shared memory:
+    warps across rows of 1, 31, 33 and 40 tiles, tiles at the most samples
+    and of escapes alone, samples cut inside a round (61) and inside a tile
+    (200, 1061) and decoded past the streams' end, delta on and off, into
+    outputs 0, 2, 4 and 6 bytes past an 8-byte boundary: equal to the plain
+    decode, and nothing written outside the output."""
+    words = _warp_rows(k, tiles)
+    wc = words.cuda()
+    nseg, w = words.shape
+    lib = _kernels.library()
+    nbytes = lib.dr_unpack_scratch_bytes(w, nseg)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=cuda)
+    counter = torch.zeros((), dtype=torch.int64, device=cuda)
+    for n in (61, 200, 1061, 3500):
+        for delta in (True, False):
+            want = unpack_decode_plain(words, n, k, delta)
+            for off in range(4):
+                buf = torch.full((nseg * n + 8,), 0x5A5A, dtype=torch.int16,
+                                 device=cuda)
+                out = buf[off: off + nseg * n]
+                assert out.data_ptr() % 8 == 2 * off
+                rc = lib.dr_unpack_decode(
+                    wc.data_ptr(), out.data_ptr(), scratch.data_ptr(), nbytes,
+                    w, nseg, n, k, int(delta), counter.data_ptr(),
+                    _kernels.stream())
+                assert rc == 0
+                torch.cuda.synchronize()
+                assert torch.equal(out.view(nseg, n).cpu(), want), (n, delta,
+                                                                    off)
+                outside = torch.cat([buf[:off], buf[off + nseg * n:]])
+                assert bool((outside == 0x5A5A).all()), (n, delta, off)
 
 
 @pytest.mark.parametrize("name,rows,width", [("nab", 2048, 1280),

@@ -19,6 +19,9 @@ the same model and the serial oracles on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -275,6 +278,96 @@ def test_streams_that_never_join_are_repaired(tile_words, group):
             want = np.cumsum(want.astype(np.int64), axis=1)
             want = (((want + 0x8000) & 0xFFFF) - 0x8000).astype(np.int16)
             np.testing.assert_array_equal(got.numpy(), want)
+
+
+# B2's decode pass by warps: (k, tiles a row, samples asked for, out's
+# phase in 8-byte words, delta): warps across rows of 1, 31, 33 and 40
+# tiles, samples cut inside a round and inside a tile and decoded past the
+# streams' end, every phase of out, tiles at 1024 / (k + 1) samples (the
+# constant row) and tiles of escapes alone
+WARP_CASES = [(0, 1, 600, 0, True), (0, 33, 250, 3, False),
+              (3, 31, 600, 1, True), (3, 33, 450, 2, True),
+              (3, 40, 900, 2, False), (3, 1, 600, 3, True),
+              (7, 33, 601, 1, True), (8, 40, 599, 1, False),
+              (15, 31, 333, 3, True), (15, 1, 600, 0, False)]
+
+
+@pytest.mark.parametrize("k,tiles,n,ph,delta", WARP_CASES, ids=str)
+def test_decode_warps_store_each_sample_once_as_the_serial_decode(
+        k, tiles, n, ph, delta):
+    """The decode pass as the kernel's warps store it (``write_plan``)
+    stores every sample below the samples that the stream's codewords
+    before the clamp give exactly once and no other; with the tail the
+    result is the serial decode's, and JAX's."""
+    x, nv = _rows(900 + k, rows=8, length=600)
+    words, _, _ = pack_encode(torch.from_numpy(x), torch.from_numpy(nv),
+                              None, k, True, 32 * tiles + 1)
+    got, stored = tm.decode_warps(words, n, k, delta, ph)
+    assert torch.equal(got, unpack_decode(words, n, k, delta))
+    want = np.asarray(jrice.unzigzag(jpack.unpack_bits(
+        jnp.asarray(words.numpy().view(np.uint32)), n, k)))
+    if delta:
+        want = np.cumsum(want.astype(np.int64), axis=1)
+    want = (((want.astype(np.int64) + 0x8000) & 0xFFFF) - 0x8000)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int16))
+    # the codewords before the clamp, from the walk of every entry phase
+    tab = tm.decode_tables(words, k)
+    states = tm.entry_states_serial(tab).to(torch.int64)
+    last = tm._step(tab[:, -1], states[:, -1, 0])
+    ends = torch.clamp(states[:, -1, 1] + last[:, 1], max=n)
+    want_stored = (torch.arange(n)[None, :] < ends[:, None]).to(torch.int64)
+    assert torch.equal(stored, want_stored)
+
+
+def test_the_models_warp_and_round_are_the_kernels():
+    """``tiled_model``'s round and tiles a warp are ``csrc/unpack.cu``'s."""
+    src = (Path(__file__).resolve().parents[1] / "deltarice_tpu_torch" /
+           "csrc" / "unpack.cu").read_text()
+    assert int(re.search(r"constexpr int kRound = (\d+);", src)[1]) == \
+        tm.ROUND
+    assert "one warp per 32 consecutive tiles" in src and tm.WARP == 32
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_write_plan_stores_consecutive_aligned_words(seed):
+    """On random plans (counts up to 1024 a tile, rows cut inside a tile,
+    any phase of out) each warp store is one lane's round: at most 32
+    consecutive 8-byte words, lane u storing word u, over at most 9
+    sectors (256 bytes from an 8-byte boundary); only a round's first and
+    last word go sample by sample; every sample of a tile's count is
+    stored once, at its place."""
+    rng = np.random.default_rng(seed)
+    nseg, ntiles = int(rng.integers(1, 5)), int(rng.integers(1, 70))
+    count = torch.from_numpy(rng.integers(0, 1025, (nseg, ntiles)))
+    count[:, rng.random(ntiles) < 0.2] = 0
+    first = count.cumsum(dim=1) - count
+    n = int(rng.integers(1, int(first[:, -1].max()) + 1200))
+    count = torch.where(first < n, torch.clamp(count, max=n - first), 0)
+    ph, base = int(rng.integers(0, 4)), 8 * int(rng.integers(0, 4))
+    plan = tm.write_plan(first, count, n, ph)
+    store = plan["store"]
+    assert bool((store[1:] >= store[:-1]).all())
+    _, at = torch.unique_consecutive(store, return_inverse=True)
+    begin = torch.zeros(int(at.max()) + 1, dtype=torch.int64).scatter_reduce(
+        0, at, plan["word"], "amin", include_self=False)
+    assert torch.equal(plan["word"] - begin[at], plan["lane"])
+    assert int(tm.store_sectors(plan, base).max()) <= 9
+    lo, nn = plan["lo"], plan["n"]
+    edge = (lo < 0) | (lo + 4 > nn)
+    assert torch.equal(~plan["full"], edge)
+    assert bool(((plan["lane"] == 0) | (lo + 4 >= nn) | ~edge).all())
+    flat = torch.zeros(nseg * n + ph + 4, dtype=torch.int64)
+    for m in range(4):
+        ok = (lo + m >= 0) & (lo + m < nn)
+        flat.index_add_(0, 4 * plan["word"][ok] + m, torch.ones_like(
+            plan["word"][ok]))
+    i = torch.arange(n)[None, :]
+    mine = torch.zeros((nseg, n), dtype=torch.int64)
+    for t in range(ntiles):
+        mine += ((i >= first[:, t:t + 1]) &
+                 (i < first[:, t:t + 1] + count[:, t:t + 1])).to(torch.int64)
+    assert torch.equal(flat[ph: ph + nseg * n].reshape(nseg, n), mine)
+    assert int(flat.sum()) == int(count.sum())
 
 
 @pytest.mark.parametrize("k", range(16))
